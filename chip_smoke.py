@@ -6,12 +6,13 @@ Builds every CUDA kernel of the serving path from tpu_engine_torch/csrc,
 holds each against its plain PyTorch version at the shapes the serving
 path gives it and times it, runs a Llama-2-7B-width Q4_K_M model (depth
 cut to 4 layers, random weights from a seed) through the kernels and
-through the plain versions, then serves it over the cortex HTTP flow
-(/loadmodel -> 8 concurrent /v1/chat/completions -> /unloadmodel) and
-checks that every kernel was launched by that flow. Any failure raises
-and exits non-zero. The last lines are the kernel table as one JSON
-object, the card's name and power limit from nvidia-smi, and
-{"ok": true, "device": {...}}. Per-shape details go to
+through the plain versions at f16, q8_0 and q4_0 KV, then serves it over
+the cortex HTTP flow once per KV cache type (/loadmodel -> 8 concurrent
+/v1/chat/completions, plus one that context-shifts at q8_0 ->
+/unloadmodel) and checks that each cycle launched every kernel of its
+path. Any failure raises and exits non-zero. The last lines are the
+kernel table as one JSON object, the card's name and power limit from
+nvidia-smi, and {"ok": true, "device": {...}}. Per-shape details go to
 chiprun_out/chip_smoke.json.
 """
 
@@ -35,9 +36,11 @@ import torch
 from tpu_engine_torch.kernels import _build
 from tpu_engine_torch.kernels import dequant_matmul as DM
 from tpu_engine_torch.kernels import flash_attention as FA
-from tpu_engine_torch.kvcache.cache import KVCache
+from tpu_engine_torch.kvcache.cache import (QUANT_KINDS, KVCache, default_layout,
+                                            dequant_kv, quantize_kv_rows)
 from tpu_engine_torch.model import llama as LL
 from tpu_engine_torch.model import weights as W
+from tpu_engine_torch.serve import ops as OPS
 
 HBM_BYTES_S = 3.35e12  # H100 SXM HBM3
 F32_FLOPS_S = 67e12    # H100 SXM f32 (CUDA cores); the kernels multiply in f32
@@ -157,16 +160,25 @@ def attn_cfg(D, softcap=0.0):
         layer_window=lambda li: 0, rope_dim=D)
 
 
-def attn_case(gen, B, KH, G, D, T, starts, Tc, n_valid, dtype=torch.bfloat16,
-              L=2, li=1):
+def attn_case(gen, B, KH, G, D, T, starts, Tc, n_valid, kind="f16",
+              layout="td", L=2, li=1):
+    """A random cache of `kind` in `layout` (quantized kinds quantize random
+    f32 rows with the port's quantize_kv_rows) and one step's operands."""
     dev = "cuda"
     H = KH * G
     S = B
-    k = torch.randn((L, S, KH, T, D), generator=gen, device=dev).to(dtype)
-    v = torch.randn((L, S, KH, T, D), generator=gen, device=dev).to(dtype)
+    planes, scales = [], []
+    for _ in range(2):
+        x = torch.randn((L, S, KH, T, D), generator=gen, device=dev)
+        if kind in QUANT_KINDS:
+            x, s = quantize_kv_rows(x, kind)
+            scales.append(s)
+        else:
+            x = x.to(torch.float32 if kind == "f32" else torch.bfloat16)
+        planes.append(x.transpose(-1, -2).contiguous() if layout == "dt" else x)
     st = torch.tensor(starts, dtype=torch.int32, device=dev)
-    cache = KVCache(k=k, v=v, lengths=st.clone(),
-                    kind="f16" if dtype == torch.bfloat16 else "f32")
+    cache = KVCache(planes[0], planes[1], st.clone(), *(scales or (None, None)),
+                    kind=kind, layout=layout)
     slot_ids = torch.arange(B, dtype=torch.int32, device=dev).flip(0).contiguous()
     cache.lengths = cache.lengths.flip(0).contiguous()  # slot b holds row B-1-b
     q = torch.randn((B, Tc, H, D), generator=gen, device=dev)
@@ -179,15 +191,19 @@ def attn_case(gen, B, KH, G, D, T, starts, Tc, n_valid, dtype=torch.bfloat16,
 
 
 def attn_bytes_flops(c, Tc):
+    """Bytes the call must move (q in and out, the in-flight rows, and each
+    live cell of K and V once: its Dk stored elements plus, when quantized,
+    its 4-byte scale) and the multiply-adds of the attended pairs."""
     q, cache = c["q"], c["cache"]
     B, _, H, D = q.shape
     KH = c["k_new"].shape[1]
     starts = c["starts"].tolist()
     nv = c["n_valid"].tolist()
-    el = cache.k.element_size()
+    Dk = cache.k.shape[3 if cache.layout == "dt" else 4]
+    cell = Dk * cache.k.element_size() + (4 if cache.quantized else 0)
     live = sum(starts)
     bytes_ = (q.numel() * 4 * 2 + 2 * c["k_new"].numel() * 4
-              + 2 * live * KH * D * el)
+              + 2 * live * KH * cell)
     keys = 0  # attended keys summed over query rows (data-dependent)
     for b in range(B):
         for t in range(Tc):
@@ -197,14 +213,22 @@ def attn_bytes_flops(c, Tc):
 
 
 def sdpa_inputs(c, Tc):
-    """Gathered, GQA-expanded K/V and the boolean mask for the yardstick."""
+    """Gathered, dequantized, "td"-ordered and GQA-expanded f32 K/V and the
+    boolean mask for the yardstick (made outside its timing)."""
     q, cache = c["q"], c["cache"]
     B, _, H, D = q.shape
     KH = c["k_new"].shape[1]
     G = H // KH
     sl = c["slot_ids"].long()
-    kc = cache.k[c["li"], sl].float()  # [B, KH, T, D]
-    vc = cache.v[c["li"], sl].float()
+    li = c["li"]
+    kv = []
+    for cells, sc in ((cache.k, cache.k_scale), (cache.v, cache.v_scale)):
+        x = cells[li, sl]
+        if cache.layout == "dt":
+            x = x.transpose(-1, -2)
+        kv.append(dequant_kv(x, None if sc is None else sc[li, sl],
+                             cache.kind))  # [B, KH, T, D] f32
+    kc, vc = kv
     T = kc.shape[2]
     kk = torch.cat([kc, c["k_new"]], 2).repeat_interleave(G, 1)
     vv = torch.cat([vc, c["v_new"]], 2).repeat_interleave(G, 1)
@@ -218,29 +242,90 @@ def sdpa_inputs(c, Tc):
     return q.transpose(1, 2).contiguous(), kk, vv, mask
 
 
-def attn_phase(timer: Timer, gen) -> list[dict]:
-    rows = []
-    D, T = 128, 512
+FILLS = [1, 511, 37, 256, 128, 400, 2, 300]  # decode fills, mixed 1..511
+
+
+def attn_cases(D=128):
+    """(kernel, label, attn_case kwargs, represents the kernel in the
+    kernels line) for every timed attention shape of the serving path."""
     cases = []
-    for KH, G in ((32, 1), (8, 4)):
-        fills = [1, 511, 37, 256, 128, 400, 2, 300]  # mixed 1..511
-        cases.append(("attn_decode", f"B=8 KH={KH} G={G} D={D} T={T} fills 1..511",
-                      dict(B=8, KH=KH, G=G, D=D, T=T, starts=fills, Tc=1,
-                           n_valid=[1] * 8)))
-        for hist in (0, 256):
-            cases.append(("attn_prefill",
-                          f"B=1 Tc=512 history {hist} KH={KH} G={G} D={D}",
-                          dict(B=1, KH=KH, G=G, D=D, T=1024, starts=[hist],
-                               Tc=512, n_valid=[512])))
+
+    def add(kname, label, main=False, **kw):
+        kind, layout = kw.get("kind", "f16"), kw.get("layout", "td")
+        cases.append((kname, f"{kind} {layout} {label}", kw, main))
+
+    # "td" (f16 at head_dim 128: the f16 server; q8_0/q4_0 in "td" only
+    # when a caller asks for that layout)
+    for kind in ("f16", "q8_0", "q4_0"):
+        for KH, G in ((32, 1), (8, 4)) if kind == "f16" else ((32, 1),):
+            add("attn_decode", f"B=8 KH={KH} G={G} D={D} T=512 fills 1..511",
+                main=kind == "f16" and KH == 32, B=8, KH=KH, G=G, D=D, T=512,
+                starts=FILLS, Tc=1, n_valid=[1] * 8, kind=kind)
+        for KH, G in ((32, 1), (8, 4)) if kind == "f16" else ((32, 1),):
+            for hist in (0, 256) if kind == "f16" else (256,):
+                add("attn_prefill", f"B=1 Tc=512 history {hist} KH={KH} G={G} "
+                    f"D={D}", main=kind == "f16" and KH == 32 and hist == 0,
+                    B=1, KH=KH, G=G, D=D, T=1024, starts=[hist], Tc=512,
+                    n_valid=[512], kind=kind)
     # the engine's grouped prefill: one [n_slots, bucket] step with mixed
     # histories and inactive rows at n_valid=0 (empty or mid-decode slots)
-    cases.append(("attn_prefill",
-                  f"B=8 Tc=256 grouped, mixed histories, 4 rows n_valid=0 "
-                  f"KH=32 G=1 D={D}",
-                  dict(B=8, KH=32, G=1, D=D, T=512,
-                       starts=[0, 0, 130, 0, 256, 17, 0, 200],
-                       Tc=256, n_valid=[256, 24, 0, 0, 150, 0, 256, 0])))
-    # window + softcap + ragged n_valid: correctness only, small shape
+    grouped = dict(B=8, KH=32, G=1, D=D, T=512,
+                   starts=[0, 0, 130, 0, 256, 17, 0, 200], Tc=256,
+                   n_valid=[256, 24, 0, 0, 150, 0, 256, 0])
+    glabel = f"B=8 Tc=256 grouped, mixed histories, 4 rows n_valid=0 KH=32 G=1 D={D}"
+    add("attn_prefill", glabel, **grouped)
+    # "dt": the quantized servers (512-cell slots), T=320 (where the JAX
+    # package falls back from _decode_kernel_dma to _decode_kernel_t), and
+    # TinyLlama's geometry (f16 at D=64, G=8)
+    for kind in ("q8_0", "q4_0"):
+        add("attn_decode_dt", f"B=8 KH=32 G=1 D={D} T=512 fills 1..511",
+            main=kind == "q8_0", B=8, KH=32, G=1, D=D, T=512, starts=FILLS,
+            Tc=1, n_valid=[1] * 8, kind=kind, layout="dt")
+        add("attn_decode_dt", f"B=8 KH=32 G=1 D={D} T=320 fills 1..319",
+            B=8, KH=32, G=1, D=D, T=320, starts=[min(f, 319) for f in FILLS],
+            Tc=1, n_valid=[1] * 8, kind=kind, layout="dt")
+        for hist in (0, 256):
+            add("attn_prefill_dt", f"B=1 Tc=512 history {hist} KH=32 G=1 D={D}",
+                main=kind == "q8_0" and hist == 0, B=1, KH=32, G=1, D=D,
+                T=1024, starts=[hist], Tc=512, n_valid=[512], kind=kind,
+                layout="dt")
+        add("attn_prefill_dt", glabel, kind=kind, layout="dt", **grouped)
+    add("attn_decode_dt", "B=8 KH=4 G=8 D=64 T=512 fills 1..511 (TinyLlama)",
+        B=8, KH=4, G=8, D=64, T=512, starts=FILLS, Tc=1, n_valid=[1] * 8,
+        kind="f16", layout="dt")
+    return cases
+
+
+def attn_check(gen, kname, kw, win=0, cap=0.0):
+    """Run flash_attention on one case: it must launch `kname` once and
+    match attention_reference on every row that attends. Returns (case,
+    args, cfg, max abs err, rel err)."""
+    c = attn_case(gen, **kw)
+    cfg = attn_cfg(kw["D"], cap)
+    args = (c["q"], c["cache"], c["li"], c["slot_ids"], c["q_pos"],
+            c["n_valid"], c["k_new"], c["v_new"], cfg)
+    before = dict(FA.LAUNCHES)
+    y = FA.flash_attention(*args, rot_cache=True, win=win)
+    ref = LL.attention_reference(*args, rot_cache=True, win=win)
+    torch.cuda.synchronize()
+    went = {k: FA.LAUNCHES[k] - before[k] for k in before}
+    if went != {k: int(k == kname) for k in before}:
+        raise AssertionError(f"{kname} case launched {went}")
+    # a row at n_valid=0 with no history attends to nothing and the
+    # engine discards it; every other row is held to the plain version
+    live = (c["n_valid"] > 0) | (c["starts"] > 0)
+    err = float((y[live] - ref[live]).abs().max())
+    rel = err / float(ref[live].abs().max())
+    if not (torch.isfinite(y).all() and err <= ATTN_TOL):
+        raise AssertionError(f"{kname} {kw}: max abs err {err:.3e} > {ATTN_TOL}")
+    return c, args, cfg, err, rel
+
+
+def attn_phase(timer: Timer, gen) -> list[dict]:
+    rows = []
+    D = 128
+    # window + softcap + ragged n_valid, in both layouts: correctness only,
+    # small shapes
     extra = [("attn_decode", 48, 30.0, dict(B=3, KH=4, G=2, D=D, T=256,
                                             starts=[0, 100, 255], Tc=1,
                                             n_valid=[1] * 3)),
@@ -249,49 +334,33 @@ def attn_phase(timer: Timer, gen) -> list[dict]:
                                              n_valid=[100, 61])),
              ("attn_decode", 0, 0.0, dict(B=2, KH=4, G=2, D=D, T=256,
                                           starts=[5, 200], Tc=1, n_valid=[1, 1],
-                                          dtype=torch.float32))]
+                                          kind="f32"))]
+    for kind in ("q8_0", "q4_0", "f32"):
+        extra += [("attn_decode_dt", 48, 30.0, dict(
+                      B=3, KH=4, G=2, D=D, T=256, starts=[0, 100, 255], Tc=1,
+                      n_valid=[1] * 3, kind=kind, layout="dt")),
+                  ("attn_prefill_dt", 48, 30.0, dict(
+                      B=2, KH=4, G=2, D=D, T=320, starts=[0, 90], Tc=100,
+                      n_valid=[100, 61], kind=kind, layout="dt"))]
     for kname, win, cap, kw in extra:
-        c = attn_case(gen, **kw)
-        cfg = attn_cfg(D, cap)
-        args = (c["q"], c["cache"], c["li"], c["slot_ids"], c["q_pos"],
-                c["n_valid"], c["k_new"], c["v_new"], cfg)
-        y = FA.flash_attention(*args, rot_cache=True, win=win)
-        ref = LL.attention_reference(*args, rot_cache=True, win=win)
-        torch.cuda.synchronize()
-        err = float((y - ref).abs().max())
+        *_, err, rel = attn_check(gen, kname, kw, win, cap)
         log(f"{kname} check window={win} softcap={cap} B={kw['B']} "
-            f"{kw.get('dtype', torch.bfloat16)}: max_abs_err {err:.3e} rel "
-            f"{err / float(ref.abs().max()):.3e} (tol {ATTN_TOL} abs)")
-        if not (torch.isfinite(y).all() and err <= ATTN_TOL):
-            raise AssertionError(f"{kname} window/softcap check err {err:.3e}")
-    for kname, shape, kw in cases:
-        c = attn_case(gen, **kw)
-        cfg = attn_cfg(D)
+            f"{kw.get('kind', 'f16')} {kw.get('layout', 'td')}: max_abs_err "
+            f"{err:.3e} rel {rel:.3e} (tol {ATTN_TOL} abs)")
+    for kname, shape, kw, main in attn_cases(D):
+        c, args, cfg, err, rel = attn_check(gen, kname, kw)
         Tc = kw["Tc"]
-        args = (c["q"], c["cache"], c["li"], c["slot_ids"], c["q_pos"],
-                c["n_valid"], c["k_new"], c["v_new"], cfg)
-        y = FA.flash_attention(*args, rot_cache=True)
-        ref = LL.attention_reference(*args, rot_cache=True)
-        torch.cuda.synchronize()
-        # a row at n_valid=0 with no history attends to nothing and the
-        # engine discards it; every other row is held to the plain version
-        live = (c["n_valid"] > 0) | (c["starts"] > 0)
-        err = float((y[live] - ref[live]).abs().max())
-        rel = err / float(ref[live].abs().max())
-        if not (torch.isfinite(y).all() and err <= ATTN_TOL):
-            raise AssertionError(f"{kname} {shape}: max abs err {err:.3e} > "
-                                 f"{ATTN_TOL}")
         bytes_, flops = attn_bytes_flops(c, Tc)
         bound = max(bytes_ / HBM_BYTES_S, flops / F32_FLOPS_S) * 1e3
         qs, kk, vv, mask = sdpa_inputs(c, Tc)
         sdpa = torch.nn.functional.scaled_dot_product_attention
         lib = timer(lambda: sdpa(qs, kk, vv, attn_mask=mask))
-        row = dict(kernel=kname, shape=shape, max_abs_err=err, max_rel_err=rel,
-                   tol_abs=ATTN_TOL,
+        row = dict(kernel=kname, shape=shape, main=main, max_abs_err=err,
+                   max_rel_err=rel, tol_abs=ATTN_TOL,
                    ms=timer(lambda: FA.flash_attention(*args, rot_cache=True)),
                    plain_ms=timer(lambda: LL.attention_reference(
                        *args, rot_cache=True)),
-                   library_ms=lib, bound_ms=bound,
+                   library_ms=lib, bound_ms=bound, bytes=bytes_, flops=flops,
                    bound_by="bytes" if bytes_ / HBM_BYTES_S >= flops / F32_FLOPS_S
                    else "operations")
         log(f"{kname} {shape}: max_abs_err {err:.3e} rel {rel:.3e} "
@@ -299,7 +368,7 @@ def attn_phase(timer: Timer, gen) -> list[dict]:
             f"kernel_ms {row['ms']:.4f} bound_ms {bound:.4f} ({row['bound_by']}) "
             f"library_ms {lib:.4f} (sdpa) plain_ms {row['plain_ms']:.4f}")
         rows.append(row)
-        del c, qs, kk, vv, mask
+        del c, args, qs, kk, vv, mask
     return rows
 
 
@@ -318,9 +387,10 @@ def model_phase(path: str) -> dict:
     prompt = rng.integers(300, cfg.n_vocab, 128).tolist()
     dev = "cuda"
 
-    def run(feed=None):
+    def run(kind, feed=None):
         cache = new_cache(cfg.n_layer, 1, 512, cfg.n_kv_head, cfg.head_dim,
-                          kind="f16", device=dev)
+                          kind=kind, layout=default_layout(kind, cfg.head_dim),
+                          device=dev)
         one = torch.zeros((1,), dtype=torch.int32, device=dev)
         act = torch.ones((1,), dtype=torch.bool, device=dev)
         logits, cache, _ = LL.forward_step(
@@ -340,31 +410,40 @@ def model_phase(path: str) -> dict:
         torch.cuda.synchronize()
         return torch.stack(rows).float(), toks
 
-    t0 = time.time()
-    k_logits, toks = run()
-    t_kernel = time.time() - t0
-    W.set_qmatmul_impl(DM.qmatmul_plain)
-    LL.set_attention_impl(LL.attention_reference)
-    try:
+    out = {}
+    # f16 ("td"): every kernel against every plain version. q8_0/q4_0
+    # ("dt"): the attention kernels against attention_reference with the
+    # qmm kernels in both runs, so both runs quantize the same K/V rows
+    # of the first layer
+    for kind in ("f16", "q8_0", "q4_0"):
         t0 = time.time()
-        p_logits, _ = run(feed=toks)  # teacher-forced on the kernel's tokens
-        t_plain = time.time() - t0
-    finally:
-        W.set_qmatmul_impl(None)
-        LL.set_attention_impl(None)
-    if not torch.isfinite(k_logits).all() or k_logits.shape != (17, cfg.n_vocab):
-        raise AssertionError("model phase: non-finite or misshapen logits")
-    top1 = float((k_logits.argmax(-1) == p_logits.argmax(-1)).float().mean())
-    dmax = float((k_logits - p_logits).abs().max())
-    rel = dmax / float(p_logits.abs().max())
-    log(f"model: prefill 128 + 16 greedy decode steps; top-1 agreement kernels "
-        f"vs plain {top1:.4f} (need 1.0); max |dlogit| {dmax:.3e} = {rel:.3e} "
-        f"of max |logit| (bound {LOGIT_TOL}); wall {t_kernel:.2f}s kernels, "
-        f"{t_plain:.2f}s plain")
-    if top1 < 1.0 or rel > LOGIT_TOL:
-        raise AssertionError("model phase: kernels disagree with plain versions")
-    out = dict(top1=top1, max_dlogit=dmax, rel_dlogit=rel,
-               wall_s_kernels=t_kernel, wall_s_plain=t_plain)
+        k_logits, toks = run(kind)
+        t_kernel = time.time() - t0
+        if kind == "f16":
+            W.set_qmatmul_impl(DM.qmatmul_plain)
+        LL.set_attention_impl(LL.attention_reference)
+        try:
+            t0 = time.time()
+            p_logits, _ = run(kind, feed=toks)  # teacher-forced on the kernel's tokens
+            t_plain = time.time() - t0
+        finally:
+            W.set_qmatmul_impl(None)
+            LL.set_attention_impl(None)
+        if not torch.isfinite(k_logits).all() or k_logits.shape != (17, cfg.n_vocab):
+            raise AssertionError(f"model phase {kind}: non-finite or misshapen logits")
+        top1 = float((k_logits.argmax(-1) == p_logits.argmax(-1)).float().mean())
+        dmax = float((k_logits - p_logits).abs().max())
+        rel = dmax / float(p_logits.abs().max())
+        log(f"model {kind} ({default_layout(kind, cfg.head_dim)}): prefill 128 + "
+            f"16 greedy decode steps; top-1 agreement kernels vs plain "
+            f"{top1:.4f} (need 1.0); max |dlogit| {dmax:.3e} = {rel:.3e} of max "
+            f"|logit| (bound {LOGIT_TOL}); wall {t_kernel:.2f}s kernels, "
+            f"{t_plain:.2f}s plain")
+        if top1 < 1.0 or rel > LOGIT_TOL:
+            raise AssertionError(f"model phase {kind}: kernels disagree with "
+                                 "plain versions")
+        out[kind] = dict(top1=top1, max_dlogit=dmax, rel_dlogit=rel,
+                         wall_s_kernels=t_kernel, wall_s_plain=t_plain)
     del lm
     torch.cuda.empty_cache()
     return out
@@ -418,91 +497,147 @@ def server_phase(path: str, smi: str) -> dict:
     th = threading.Thread(target=srv.serve_forever, daemon=True)
     th.start()
     base = f"http://127.0.0.1:{port}"
-    n_tokens = [20, 60, 110, 160, 210, 270, 330, 400]  # prompt sizes
+    # count the engine's context shifts (kvcache.shift_compact calls) and
+    # the cache they ran on
+    shifts = []
+    real_shift = OPS.shift_compact
+
+    def counting_shift(cache, *a, **kw):
+        shifts.append((cache.kind, cache.layout, cache.k.device.type))
+        return real_shift(cache, *a, **kw)
+
+    OPS.shift_compact = counting_shift
     try:
-        for k in DM.LAUNCHES:
-            DM.LAUNCHES[k] = 0
-        for k in FA.LAUNCHES:
-            FA.LAUNCHES[k] = 0
-        t0 = time.time()
-        status, resp = _post(base, "/loadmodel", {
-            "llama_model_path": path, "model": "smoke", "n_parallel": 8,
-            "ctx_len": 4096, "cache_type": "f16"})
-        if status != 200:
-            raise AssertionError(f"/loadmodel: {status} {resp}")
-        log(f"server: /loadmodel {time.time() - t0:.1f}s (load + warm-up)")
-        after_load = {**DM.LAUNCHES, **FA.LAUNCHES}
-        bodies = [_chat_body(tok, i, n) for i, n in enumerate(n_tokens)]
-        results = [None] * len(bodies)
-
-        def worker(i):
-            t_s = time.time()
-            if bodies[i]["stream"]:
-                chunks, ttft = _stream(base, bodies[i])
-                results[i] = ("stream", chunks, ttft, time.time() - t_s)
-            else:
-                results[i] = ("json", _post(base, "/v1/chat/completions",
-                                            bodies[i]), None, time.time() - t_s)
-
-        t_burst = time.time()
-        ths = [threading.Thread(target=worker, args=(i,)) for i in range(len(bodies))]
-        for t in ths:
-            t.start()
-        for t in ths:
-            t.join()
-        wall = time.time() - t_burst
-        total_completion, ttfts = 0, []
-        for i, (kind, res, ttft, lat) in enumerate(results):
-            want_prompt = _prompt_tokens(tok, bodies[i])
-            if kind == "json":
-                status, resp = res
-                if status != 200 or resp.get("object") != "chat.completion":
-                    raise AssertionError(f"request {i}: {status} {resp}")
-                usage = resp["usage"]
-                finish = resp["choices"][0]["finish_reason"]
-                text = resp["choices"][0]["message"]["content"]
-            else:
-                chunks = res
-                usage = [c for c in chunks if c.get("usage")][-1]["usage"]
-                finish = [c["choices"][0]["finish_reason"] for c in chunks
-                          if c.get("choices")][-1]
-                text = "".join(c["choices"][0]["delta"].get("content") or ""
-                               for c in chunks if c.get("choices"))
-                if ttft is None:
-                    raise AssertionError(f"stream {i}: no content delta")
-                ttfts.append(ttft)
-            n_c = usage["completion_tokens"]
-            ok = (usage["prompt_tokens"] == want_prompt and 1 <= n_c <= 64
-                  and usage["total_tokens"] == want_prompt + n_c
-                  and finish in ("stop", "length")
-                  and (finish != "length" or n_c == 64)
-                  and isinstance(text, str))
-            if not ok:
-                raise AssertionError(f"request {i}: usage {usage} (prompt "
-                                     f"{want_prompt}) finish {finish}")
-            total_completion += n_c
-            log(f"server: request {i} ({kind}): prompt "
-                f"{usage['prompt_tokens']} completion {n_c} finish {finish} "
-                f"latency {lat:.2f}s")
-        after_chat = {**DM.LAUNCHES, **FA.LAUNCHES}
-        status, resp = _post(base, "/unloadmodel", {"model": "smoke"})
-        if status != 200:
-            raise AssertionError(f"/unloadmodel: {status} {resp}")
-        launches = {**DM.LAUNCHES, **FA.LAUNCHES}
+        out = {}
+        for cache_type in ("f16", "q8_0", "q4_0"):
+            shifts.clear()
+            out[cache_type] = server_cycle(srv, base, path, tok, cache_type,
+                                           smi)
+            out[cache_type]["context_shifts"] = list(shifts)
+            if cache_type == "q8_0" and not any(
+                    sh == ("q8_0", "dt", "cuda") for sh in shifts):
+                raise AssertionError("q8_0 cycle: no context shift of the "
+                                     f"quantized dt cache on the card: {shifts}")
+            log(f"server {cache_type}: context shifts {shifts}")
     finally:
+        OPS.shift_compact = real_shift
         srv.shutdown()
         srv.server_close()
         srv.registry.unload_all()
         th.join(timeout=30)
+    return out
+
+
+def server_cycle(srv, base, path, tok, cache_type, smi) -> dict:
+    """/loadmodel at cache_type -> 8 concurrent chats (9 at q8_0: one more
+    whose ~480-token prompt plus 64 generated tokens crosses the 512-cell
+    slot, so the engine context-shifts it) -> /unloadmodel. Launch counts
+    are zeroed just before /loadmodel and read just after /unloadmodel."""
+    n_tokens = [20, 60, 110, 160, 210, 270, 330, 400]  # prompt sizes
+    if cache_type == "q8_0":
+        n_tokens.append(480)
+    for k in DM.LAUNCHES:
+        DM.LAUNCHES[k] = 0
+    for k in FA.LAUNCHES:
+        FA.LAUNCHES[k] = 0
+    t0 = time.time()
+    status, resp = _post(base, "/loadmodel", {
+        "llama_model_path": path, "model": "smoke", "n_parallel": 8,
+        "ctx_len": 4096, "cache_type": cache_type})
+    if status != 200:
+        raise AssertionError(f"/loadmodel {cache_type}: {status} {resp}")
+    t_load = time.time() - t0
+    # the engine's cache follows default_layout: at head_dim 128, "td" for
+    # f16 (attn_decode/attn_prefill) and "dt" for q8_0/q4_0
+    # (attn_decode_dt/attn_prefill_dt)
+    engine = srv.registry.get("smoke").engine
+    cache = engine.ops.cache
+    layout = default_layout(cache_type, engine.cfg.head_dim)
+    if (cache.kind, cache.layout) != (cache_type, layout):
+        raise AssertionError(f"{cache_type}: engine cache {cache.kind} "
+                             f"{cache.layout}, want {layout}")
+    del engine, cache
+    log(f"server {cache_type} ({layout}): /loadmodel {t_load:.1f}s (load + "
+        "warm-up)")
+    after_load = {**DM.LAUNCHES, **FA.LAUNCHES}
+    bodies = [_chat_body(tok, i, n) for i, n in enumerate(n_tokens)]
+    results = [None] * len(bodies)
+
+    def worker(i):
+        t_s = time.time()
+        if bodies[i]["stream"]:
+            chunks, ttft = _stream(base, bodies[i])
+            results[i] = ("stream", chunks, ttft, time.time() - t_s)
+        else:
+            results[i] = ("json", _post(base, "/v1/chat/completions",
+                                        bodies[i]), None, time.time() - t_s)
+
+    t_burst = time.time()
+    ths = [threading.Thread(target=worker, args=(i,)) for i in range(len(bodies))]
+    for t in ths:
+        t.start()
+    for t in ths:
+        t.join()
+    wall = time.time() - t_burst
+    total_completion, ttfts = 0, []
+    for i, (kind, res, ttft, lat) in enumerate(results):
+        if res is None:
+            raise AssertionError(f"{cache_type} request {i}: no response")
+        want_prompt = _prompt_tokens(tok, bodies[i])
+        if kind == "json":
+            status, resp = res
+            if status != 200 or resp.get("object") != "chat.completion":
+                raise AssertionError(f"request {i}: {status} {resp}")
+            usage = resp["usage"]
+            finish = resp["choices"][0]["finish_reason"]
+            text = resp["choices"][0]["message"]["content"]
+        else:
+            chunks = res
+            usage = [c for c in chunks if c.get("usage")][-1]["usage"]
+            finish = [c["choices"][0]["finish_reason"] for c in chunks
+                      if c.get("choices")][-1]
+            text = "".join(c["choices"][0]["delta"].get("content") or ""
+                           for c in chunks if c.get("choices"))
+            if ttft is None:
+                raise AssertionError(f"stream {i}: no content delta")
+            ttfts.append(ttft)
+        n_c = usage["completion_tokens"]
+        ok = (usage["prompt_tokens"] == want_prompt and 1 <= n_c <= 64
+              and usage["total_tokens"] == want_prompt + n_c
+              and finish in ("stop", "length")
+              and (finish != "length" or n_c == 64)
+              and isinstance(text, str))
+        if not ok:
+            raise AssertionError(f"{cache_type} request {i}: usage {usage} "
+                                 f"(prompt {want_prompt}) finish {finish}")
+        total_completion += n_c
+        log(f"server {cache_type}: request {i} ({kind}): prompt "
+            f"{usage['prompt_tokens']} completion {n_c} finish {finish} "
+            f"latency {lat:.2f}s")
+    after_chat = {**DM.LAUNCHES, **FA.LAUNCHES}
+    status, resp = _post(base, "/unloadmodel", {"model": "smoke"})
+    if status != 200:
+        raise AssertionError(f"/unloadmodel {cache_type}: {status} {resp}")
+    launches = {**DM.LAUNCHES, **FA.LAUNCHES}
     chat = {k: after_chat[k] - after_load[k] for k in launches}
-    log(f"server: launches over the flow {launches}; during the chat burst {chat}")
-    if not all(v > 0 for v in chat.values()):
-        raise AssertionError(f"a kernel was not launched by the chat flow: {chat}")
+    log(f"server {cache_type}: launches over the cycle {launches}; during the "
+        f"chat burst {chat}")
+    dt = "_dt" if layout == "dt" else ""
+    need = ("qmm_nib4", "qmm_i8", "attn_decode" + dt, "attn_prefill" + dt)
+    if not all(chat[k] > 0 for k in need):
+        raise AssertionError(f"{cache_type}: a kernel of the path was not "
+                             f"launched by the chat burst: {chat}")
+    other = [k for k in FA.LAUNCHES if k not in need and launches[k]]
+    if other:
+        raise AssertionError(f"{cache_type}: launched another layout's "
+                             f"kernels {other}: {launches}")
     tps = total_completion / wall
-    log(f"server: 8 requests (6 json, 2 streamed) in {wall:.2f}s: aggregate "
-        f"{tps:.1f} completion tok/s; TTFT (streamed) "
-        f"{', '.join(f'{t:.3f}s' for t in ttfts)} [{smi}]")
-    return dict(launches=launches, chat_launches=chat, wall_s=wall,
+    log(f"server {cache_type}: {len(bodies)} requests ({len(bodies) - 2} json, "
+        f"2 streamed) in {wall:.2f}s: aggregate {tps:.1f} completion tok/s; "
+        f"TTFT (streamed) {', '.join(f'{t:.3f}s' for t in ttfts)} [{smi}]")
+    torch.cuda.empty_cache()
+    return dict(launches=launches, chat_launches=chat, load_s=t_load,
+                wall_s=wall, requests=len(bodies),
                 completion_tokens=total_completion, tok_s=tps, ttft_s=ttfts)
 
 
@@ -517,14 +652,14 @@ def _prompt_tokens(tok, body) -> int:
 
 def _chat_body(tok, i: int, n_tokens: int) -> dict:
     """Greedy chat request i whose prompt is the shortest run of words that
-    reaches n_tokens tokens; the last two of the eight stream."""
+    reaches n_tokens tokens; requests 6 and 7 stream."""
     words = ["hello", "world", "the", "quick", "brown", "fox", "jumps",
              "over", "lazy", "dog"]
 
     def body(n):
         text = " ".join(words[(i + j) % len(words)] for j in range(n))
         return {"model": "smoke", "max_tokens": 64, "temperature": 0,
-                "stream": i >= 6, "stream_options": {"include_usage": True},
+                "stream": i in (6, 7), "stream_options": {"include_usage": True},
                 "messages": [{"role": "user", "content": text}]}
 
     n = 1
@@ -534,27 +669,31 @@ def _chat_body(tok, i: int, n_tokens: int) -> dict:
 
 
 # ------------------------------------------------------------------- main
+FA_SRC = "tpu_engine/kernels/flash_attention.py"
+SOURCES = {  # kernel -> (source, the TPU kernel(s) it replaces)
+    "qmm_nib4": ("tpu_engine_torch/csrc/qmm.cu",
+                 "tpu_engine/kernels/dequant_matmul.py:209"),
+    "qmm_i8": ("tpu_engine_torch/csrc/qmm.cu",
+               "tpu_engine/kernels/dequant_matmul.py:259"),
+    "attn_decode": ("tpu_engine_torch/csrc/attn.cu", f"{FA_SRC}:204"),
+    "attn_prefill": ("tpu_engine_torch/csrc/attn.cu", f"{FA_SRC}:875"),
+    "attn_decode_dt": ("tpu_engine_torch/csrc/attn_dt.cu",
+                       f"{FA_SRC}:411, {FA_SRC}:299"),
+    "attn_prefill_dt": ("tpu_engine_torch/csrc/attn_dt.cu", f"{FA_SRC}:960"),
+}
+
+
 def summarize(rows: list[dict], launches: dict) -> list[dict]:
     """One line per kernel: the main-path shape set of a decode step for the
-    projections (M=8, summed over the layer's tensors of that kernel), the
-    B=8 KH=32 decode and the Tc=512 history-0 prefill for attention."""
-    sources = {"qmm_nib4": ("tpu_engine_torch/csrc/qmm.cu",
-                            "tpu_engine/kernels/dequant_matmul.py:209"),
-               "qmm_i8": ("tpu_engine_torch/csrc/qmm.cu",
-                          "tpu_engine/kernels/dequant_matmul.py:259"),
-               "attn_decode": ("tpu_engine_torch/csrc/attn.cu",
-                               "tpu_engine/kernels/flash_attention.py:204"),
-               "attn_prefill": ("tpu_engine_torch/csrc/attn.cu",
-                                "tpu_engine/kernels/flash_attention.py:875")}
+    projections (M=8, summed over the layer's tensors of that kernel); for
+    attention the row attn_cases marks (B=8 KH=32 decode at fills 1..511
+    and the B=1 Tc=512 history-0 prefill: f16 "td", q8_0 "dt")."""
     out = []
-    for name, (src, repl) in sources.items():
+    for name, (src, repl) in SOURCES.items():
         if name.startswith("qmm"):
             sel = [r for r in rows if r["kernel"] == name and r["M"] == 8]
-        elif name == "attn_decode":
-            sel = [r for r in rows if r["kernel"] == name and "KH=32" in r["shape"]]
         else:
-            sel = [r for r in rows if r["kernel"] == name and "KH=32" in r["shape"]
-                   and "history 0" in r["shape"]]
+            sel = [r for r in rows if r["kernel"] == name and r["main"]]
         b_bytes = sum(r["bound_ms"] for r in sel if r["bound_by"] == "bytes")
         out.append(dict(
             name=name, route="cuda", source=src, replaces=repl,
@@ -604,10 +743,14 @@ def main() -> int:
             f"Q4_K_M mix) in {time.time() - t0:.1f}s")
         detail["model"] = model_phase(path)
         detail["server"] = server_phase(path, smi)
+    # launches of the main path: the three server cycles, each counted
+    # from zero at its /loadmodel to its /unloadmodel
+    launches = {k: sum(c["launches"][k] for c in detail["server"].values())
+                for k in SOURCES}
+    detail["launches"] = launches
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:
         json.dump(detail, fh, indent=1)
-    launches = detail["server"]["launches"]
     print(json.dumps({"kernels": summarize(rows, launches)}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,18 +1,26 @@
 """The port's attention (tpu_engine_torch model.llama.attention_reference and
 kernels.flash_attention's CPU path) against the JAX package's
-attention_reference and its Pallas flash_attention in interpret mode, on
-the "td" cache with K stored pre-rotated (rot_cache=True, the serving
-path), for f32 and f16 (bf16 cells) KV. Cases mirror
-tests/test_flash_attention.py: decode, prefill, continuation, mixed
-lengths, slot indirection, GQA, softcap, sliding window, ragged n_valid.
+attention_reference and its Pallas flash_attention in interpret mode, with
+K stored pre-rotated (rot_cache=True, the serving path), for every path
+the JAX package routes to:
+  - "td" cache, f32/f16 (bf16 cells), q8_0 and q4_0: _decode_kernel_bh
+    (B3) and _prefill_kernel (B4);
+  - "dt" cache, all four kinds: _decode_kernel_dma (B5, T a multiple of
+    128), _decode_kernel_t (B6, T=160) and _prefill_kernel_t (B7).
+Cases mirror tests/test_flash_attention.py: decode, prefill, continuation,
+mixed lengths, slot indirection, GQA (TinyLlama's G=8 at D=64 included),
+softcap, sliding window, ragged n_valid.
 
-Inputs come from a numpy seed and go to both packages. Tolerances:
-  - port vs JAX reference: 2e-5 (both f32 throughout; only the order of
-    f32 sums differs);
+Inputs come from a numpy seed and go to both packages; quantized cells
+are quantized once (JAX's quantize_kv_rows) and the same bytes go to both.
+Tolerances:
+  - port vs JAX reference: 2e-5 (both f32 throughout, both dequantize
+    cell x scale in f32; only the order of f32 sums differs);
   - port vs Pallas interpret: 2e-5 where the TPU kernel computes in f32
-    (f32 cells, and the prefill kernel on bf16 cells), 2e-2 for decode on
-    bf16 cells, where _decode_kernel_bh rounds q and p to bf16 for its
-    dots (~2^-8 relative).
+    (f32 cells, and both prefill kernels on any cells), 2e-2 for decode on
+    bf16/q8_0/q4_0 cells, where _decode_kernel_bh, _decode_kernel_dma and
+    _decode_kernel_t round q and p to bf16 for their dots (~2^-8
+    relative).
 """
 
 import dataclasses
@@ -24,6 +32,7 @@ import torch
 
 from tpu_engine.kernels import flash_attention as JFA
 from tpu_engine.kvcache.cache import KVCache as JKV
+from tpu_engine.kvcache.cache import quantize_kv_rows
 from tpu_engine.model.config import ModelConfig
 from tpu_engine.model.llama import attention_reference as j_ref
 from tpu_engine_torch.kernels import flash_attention as TFA
@@ -52,7 +61,37 @@ def mk_cfg(H=4, KH=2, D=64, softcap=0.0, window=0):
     return cfg
 
 
-def run_case(kind, seed, B, Tc, T, starts, cfg, slot_perm=None, n_valid=None):
+def _caches(kind, layout, k, v, lengths):
+    """The same stored planes for both packages (k, v [1, B, KH, T, D] f32
+    in "td" order; quantized once, with JAX's quantize_kv_rows)."""
+    if kind in ("q8_0", "q4_0"):
+        (kc, ks), (vc, vs) = (quantize_kv_rows(jnp.asarray(x), kind)
+                              for x in (k, v))
+        kc, vc, ks, vs = (np.asarray(a) for a in (kc, vc, ks, vs))
+    else:
+        ks = vs = None
+        kc, vc = (np.asarray(jnp.asarray(x, jnp.float32 if kind == "f32"
+                                         else jnp.bfloat16)) for x in (k, v))
+    if layout == "dt":
+        kc, vc = np.swapaxes(kc, -1, -2).copy(), np.swapaxes(vc, -1, -2).copy()
+    jc = JKV(jnp.asarray(kc), jnp.asarray(vc), jnp.asarray(lengths),
+             None if ks is None else jnp.asarray(ks),
+             None if vs is None else jnp.asarray(vs), kind, layout)
+
+    def tt(a):  # a writable copy with the same bytes
+        if a.dtype == jnp.bfloat16:
+            return torch.from_numpy(np.array(a.view(np.int16))).view(
+                torch.bfloat16)
+        return torch.from_numpy(np.array(a))
+
+    tc = TKV(tt(kc), tt(vc), torch.from_numpy(lengths),
+             None if ks is None else tt(ks), None if vs is None else tt(vs),
+             kind=kind, layout=layout)
+    return jc, tc
+
+
+def run_case(kind, seed, B, Tc, T, starts, cfg, slot_perm=None, n_valid=None,
+             layout="td"):
     rng = np.random.default_rng(seed)
     H, KH, D = cfg.n_head, cfg.n_kv_head, cfg.head_dim
     q = rng.standard_normal((B, Tc, H, D)).astype(np.float32)
@@ -69,12 +108,7 @@ def run_case(kind, seed, B, Tc, T, starts, cfg, slot_perm=None, n_valid=None):
         np.asarray(n_valid, np.int32)
     lengths = np.zeros((B,), np.int32)
     lengths[slots] = starts
-    jdt, tdt = ((jnp.float32, torch.float32) if kind == "f32"
-                else (jnp.bfloat16, torch.bfloat16))
-    jc = JKV(jnp.asarray(k, jdt), jnp.asarray(v, jdt), jnp.asarray(lengths),
-             kind=kind, layout="td")
-    tc = TKV(torch.from_numpy(k).to(tdt), torch.from_numpy(v).to(tdt),
-             torch.from_numpy(lengths), kind=kind, layout="td")
+    jc, tc = _caches(kind, layout, k, v, lengths)
     jargs = (jnp.asarray(q), jc, 0, jnp.asarray(slots), jnp.asarray(q_pos),
              jnp.asarray(nv), jnp.asarray(kn), jnp.asarray(vn), cfg,
              jnp.int32(1), jnp.int32(0))
@@ -117,6 +151,66 @@ def test_attention_matches_jax(case, kind):
     np.testing.assert_array_equal(tf, tr)
     tol = 2e-2 if (kind == "f16" and Tc == 1) else 2e-5
     np.testing.assert_allclose(tr[valid], jp[valid], rtol=tol, atol=tol)
+
+
+def check_case(kind, layout, seed, B, Tc, T, starts, ckw, perm=None,
+               nv_in=None):
+    cfg = mk_cfg(**ckw)
+    jr, jp, tr, tf, nv = run_case(kind, seed, B, Tc, T, starts, cfg, perm,
+                                  nv_in, layout=layout)
+    valid = np.arange(Tc)[None, :] < nv[:, None]
+    np.testing.assert_allclose(tr[valid], jr[valid], rtol=2e-5, atol=2e-5)
+    np.testing.assert_array_equal(tf, tr)
+    tol = 2e-2 if (kind != "f32" and Tc == 1) else 2e-5
+    np.testing.assert_allclose(tr[valid], jp[valid], rtol=tol, atol=tol)
+
+
+# B3/B4 on quantized "td" cells
+QUANT_TD_CASES = ("decode", "prefill", "continuation", "gqa", "window_decode",
+                  "ragged_n_valid")
+
+
+@pytest.mark.parametrize("kind", ["q8_0", "q4_0"])
+@pytest.mark.parametrize("case", QUANT_TD_CASES)
+def test_quantized_td_matches_jax(case, kind):
+    B, Tc, T, starts, ckw, perm, nv_in = CASES[case]
+    check_case(kind, "td", 100 + QUANT_TD_CASES.index(case), B, Tc, T,
+               starts, ckw, perm, nv_in)
+
+
+DT_CASES = {
+    # name: (B, Tc, T, starts, cfg kwargs, slot_perm, n_valid)
+    # B5 (_decode_kernel_dma): T a multiple of 128, an empty row included
+    "dma_decode": (4, 1, 256, [0, 5, 130, 255], {}, None, None),
+    # B6 (_decode_kernel_t): T with no 128-multiple divisor
+    "t_decode": (4, 1, 160, [157, 150, 100, 3], {}, None, None),
+    # B7 (_prefill_kernel_t), with history
+    "prefill": (2, 32, 256, [40, 7], {}, None, None),
+    # TinyLlama geometry: G = 8 (attn_decode's limit) at D = 64
+    "tinyllama_decode": (2, 1, 256, [200, 17], dict(H=16, KH=2), None, None),
+    "tinyllama_prefill": (2, 16, 128, [0, 60], dict(H=16, KH=2), None, None),
+}
+DT_EXTRA_CASES = {
+    "window_decode": (3, 1, 256, [10, 60, 200], dict(window=24), None, None),
+    "window_prefill": (2, 32, 256, [40, 100], dict(window=24), None, None),
+    "ragged_n_valid": (2, 16, 64, [0, 20], {}, None, [16, 9]),
+    "slot_indirection": (3, 1, 128, [10, 40, 90], {}, [2, 0, 1], None),
+    "softcap": (2, 8, 64, [3, 11], dict(H=2, KH=2, softcap=50.0), None, None),
+}
+
+
+@pytest.mark.parametrize("kind", ["f32", "f16", "q8_0", "q4_0"])
+@pytest.mark.parametrize("case", list(DT_CASES))
+def test_dt_matches_jax(case, kind):
+    check_case(kind, "dt", 200 + list(DT_CASES).index(case),
+               *DT_CASES[case])
+
+
+@pytest.mark.parametrize("kind", ["q8_0", "q4_0"])
+@pytest.mark.parametrize("case", list(DT_EXTRA_CASES))
+def test_dt_quantized_masks_match_jax(case, kind):
+    check_case(kind, "dt", 300 + list(DT_EXTRA_CASES).index(case),
+               *DT_EXTRA_CASES[case])
 
 
 def test_cuda_path_refuses_unrotated_k():

@@ -2,10 +2,11 @@
 package's, op for op: the same rows (numpy seed) go through append_step
 (prefill windows with ragged n_valid, the end-of-slot clamp, decode rows,
 inactive rows), trim, seq_cp, clear_slot, clear_all and shift_compact with
-and without re-rope, for the f32 and f16 (bf16 cells) kinds. Every plane
-and the lengths must be byte-identical after every op (the ops are copies
-and casts), except the f32 cells the re-rope rotates: see
-test_shift_compact."""
+and without re-rope, for the four kinds (f32, f16 as bf16 cells, q8_0,
+q4_0) in both layouts ("td" [L, S, KH, T, Dk], "dt" [L, S, KH, Dk, T]).
+Every cell plane, scale plane and the lengths must be byte-identical after
+every op (the ops are copies, casts and the same absmax quantization),
+except the K cells the re-rope rotates: see test_shift_compact."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -19,16 +20,34 @@ from tpu_engine_torch.kvcache import cache as T
 torch.set_num_threads(2)
 
 L, S, KH, TMAX, D = 2, 3, 2, 32, 16
+KINDS = ("f32", "f16", "q8_0", "q4_0")
+
+
+def _np(a):
+    """A plane as numpy, bf16 viewed as its bit pattern."""
+    if isinstance(a, torch.Tensor):
+        if a.dtype == torch.bfloat16:
+            return a.view(torch.int16).numpy().view(np.uint16)
+        return a.numpy()
+    a = np.asarray(a)
+    return a.view(np.uint16) if a.dtype == jnp.bfloat16 else a
+
+
+def jplanes(jc):
+    return [jc.k, jc.v] + ([jc.k_scale, jc.v_scale] if jc.quantized else [])
+
+
+def tplanes(tc):
+    return [tc.k, tc.v] + ([tc.k_scale, tc.v_scale] if tc.quantized else [])
 
 
 def planes_equal(jc, tc, k_fma=False):
-    for ja, ta, fma in ((jc.k, tc.k, k_fma), (jc.v, tc.v, False)):
-        if ta.dtype == torch.bfloat16:
-            a = np.asarray(ja).view(np.uint16)
-            b = ta.view(torch.int16).numpy().view(np.uint16)
-        else:
-            a, b = np.asarray(ja), ta.numpy()
-        if fma:  # one rounding of a product of magnitude <= max |cell|
+    assert (tc.kind, tc.layout, tc.quantized) == (jc.kind, jc.layout,
+                                                  jc.quantized)
+    for i, (ja, ta) in enumerate(zip(jplanes(jc), tplanes(tc), strict=True)):
+        a, b = _np(ja), _np(ta)
+        assert a.dtype == b.dtype and a.shape == b.shape
+        if k_fma and i == 0:  # one rounding of a product <= max |cell|
             np.testing.assert_allclose(
                 a, b, rtol=0, atol=np.finfo(np.float32).eps * np.abs(a).max())
         else:
@@ -51,7 +70,8 @@ def append_both(jc, tc, rng, slots, starts, n_valid, active, Tc):
     for s, st, n, a in zip(*args):
         if a:
             lengths[s] = st + n
-    jc = J.KVCache(jc.k, jc.v, jnp.asarray(lengths), kind=jc.kind)
+    jc = J.KVCache(jc.k, jc.v, jnp.asarray(lengths), jc.k_scale, jc.v_scale,
+                   jc.kind, jc.layout)
     # a buffer of its own: jnp.asarray may alias `lengths`, and the port's
     # ops update tc.lengths in place while JAX's async dispatch may not
     # have read it yet
@@ -59,11 +79,12 @@ def append_both(jc, tc, rng, slots, starts, n_valid, active, Tc):
     return jc, tc
 
 
-@pytest.fixture(params=["f32", "f16"])
+@pytest.fixture(params=[(k, lay) for lay in ("td", "dt") for k in KINDS],
+                ids=lambda p: f"{p[0]}-{p[1]}")
 def caches(request):
-    kind = request.param
-    jc = J.new_cache(L, S, TMAX, KH, D, kind=kind)
-    tc = T.new_cache(L, S, TMAX, KH, D, kind=kind, device="cpu")
+    kind, layout = request.param
+    jc = J.new_cache(L, S, TMAX, KH, D, kind=kind, layout=layout)
+    tc = T.new_cache(L, S, TMAX, KH, D, kind=kind, layout=layout, device="cpu")
     return jc, tc
 
 
@@ -85,8 +106,11 @@ def filled(caches):
 
 def test_new_cache_matches(caches):
     jc, tc = caches
-    assert tc.k.dtype == (torch.bfloat16 if jc.kind == "f16" else torch.float32)
+    want = {"f32": torch.float32, "f16": torch.bfloat16, "q8_0": torch.int8,
+            "q4_0": torch.uint8}[jc.kind]
+    assert tc.k.dtype == want
     assert tuple(tc.k.shape) == tuple(jc.k.shape)
+    assert tc.max_len == jc.max_len == TMAX
     planes_equal(jc, tc)
 
 
@@ -122,6 +146,9 @@ def test_trim_seq_cp_clear_slot_clear_all(caches):
     planes_equal(jc, tc)
 
 
+N_KEEP, N_DISCARD = 2, 5
+
+
 @pytest.mark.parametrize("rope", [False, True])
 def test_shift_compact(caches, rope):
     jc, tc = filled(caches)
@@ -130,23 +157,68 @@ def test_shift_compact(caches, rope):
         head_dim=D, n_ff=16, n_vocab=32, rms_eps=1e-5, rope_dim=D,
         rope_type="neox", rope_theta=10000.0, n_ctx_train=2048)
     rp = (cfg.rope_dim, cfg.rope_freq_table()[0]) if rope else None
-    jc = J.shift_compact(jc, jnp.int32(0), jnp.int32(2), jnp.int32(5), rope=rp)
-    T.shift_compact(tc, 0, 2, 5, rope=rp)
-    assert int(tc.lengths[0]) == 14 - 5
+    jc = J.shift_compact(jc, jnp.int32(0), jnp.int32(N_KEEP),
+                         jnp.int32(N_DISCARD), rope=rp)
+    T.shift_compact(tc, 0, N_KEEP, N_DISCARD, rope=rp)
+    assert int(tc.lengths[0]) == 14 - N_DISCARD
     # XLA:CPU contracts the f32 rotation x1*cos - x2*sin into an FMA (one
     # rounding where PyTorch rounds twice), so re-roped f32 K cells may
     # differ by the rounding of one product; bf16 cells (the serving kind)
     # and every other cell stay byte-identical
-    f32_rope = rope and jc.kind == "f32"
-    planes_equal(jc, tc, k_fma=f32_rope)
-    if f32_rope:  # the unmoved head cells [0, n_keep] are untouched copies
-        np.testing.assert_array_equal(np.asarray(jc.k)[:, 0, :, :3],
-                                      tc.k[:, 0, :, :3].numpy())
+    if not (rope and jc.kind in J.KV_KINDS[2:]):
+        f32_rope = rope and jc.kind == "f32"
+        planes_equal(jc, tc, k_fma=f32_rope)
+        if f32_rope:  # the unmoved head cells [0, n_keep] are untouched
+            cells = slice(0, N_KEEP + 1)
+            jk = np.asarray(jc.k)[:, 0]
+            tk = tc.k[:, 0].numpy()
+            if jc.layout == "dt":
+                jk, tk = np.swapaxes(jk, -1, -2), np.swapaxes(tk, -1, -2)
+            np.testing.assert_array_equal(jk[:, :, cells], tk[:, :, cells])
+        return
+    # quantized K re-roped: dequantize, rotate, requantize. V, the lengths,
+    # the other slots and the unmoved cells [0, n_keep] with their scales
+    # are byte-identical; a moved cell may land one quantization step
+    # away (the FMA above can move a value across a rounding boundary)
+    for a, b in ((jc.v, tc.v), (jc.v_scale, tc.v_scale)):
+        np.testing.assert_array_equal(_np(a), _np(b))
+    np.testing.assert_array_equal(np.asarray(jc.lengths), tc.lengths.numpy())
+    for a, b in ((jc.k, tc.k), (jc.k_scale, tc.k_scale)):
+        np.testing.assert_array_equal(_np(a)[:, 1:], _np(b)[:, 1:])
+
+    def dq(cache, kc, ksc):
+        kc = np.asarray(kc)[:, 0]
+        if cache.layout == "dt":
+            kc = np.swapaxes(kc, -1, -2)  # [L, KH, T, Dk]
+        ks = np.asarray(ksc)[:, 0]
+        return np.asarray(J.dequant_kv(jnp.asarray(kc), jnp.asarray(ks),
+                                       cache.kind)), ks
+
+    jd, jks = dq(jc, jc.k, jc.k_scale)
+    td, tks = dq(jc, tc.k.numpy(), tc.k_scale.numpy())
+    head = slice(0, N_KEEP + 1)
+    np.testing.assert_array_equal(jks[..., head], tks[..., head])
+    np.testing.assert_array_equal(jd[:, :, head], td[:, :, head])
+    np.testing.assert_allclose(tks, jks, rtol=1e-6, atol=0)
+    step = np.maximum(jks, tks)[..., None] * (1 + 1e-6)
+    assert np.all(np.abs(jd - td) <= step)
 
 
-def test_only_td_float_kinds_in_this_slice():
-    with pytest.raises(NotImplementedError, match="q8_0"):
-        T.new_cache(L, S, TMAX, KH, D, kind="q8_0", device="cpu")
-    with pytest.raises(NotImplementedError, match="dt"):
-        T.new_cache(L, S, TMAX, KH, D, kind="f16", layout="dt", device="cpu")
-    assert T.default_layout("f16", 64) == "td"
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("head_dim", [64, 128])
+def test_default_layout_matches_jax(kind, head_dim, monkeypatch):
+    monkeypatch.delenv("TPU_ENGINE_KV_LAYOUT", raising=False)
+    assert T.default_layout(kind, head_dim) == J.default_layout(kind, head_dim)
+
+
+@pytest.mark.parametrize("kind", ["q8_0", "q4_0"])
+def test_quantize_dequant_rows_match_jax(kind):
+    x = np.random.default_rng(9).standard_normal((3, 5, D)).astype(np.float32)
+    x[0, 0] = 0.0  # an all-zero row: scale 0, cells at the zero point
+    jc, js = J.quantize_kv_rows(jnp.asarray(x), kind)
+    tc, ts = T.quantize_kv_rows(torch.from_numpy(x), kind)
+    np.testing.assert_array_equal(np.asarray(jc), tc.numpy())
+    np.testing.assert_array_equal(np.asarray(js), ts.numpy())
+    np.testing.assert_array_equal(
+        np.asarray(J.dequant_kv(jc, js, kind)),
+        T.dequant_kv(tc, ts, kind).numpy())

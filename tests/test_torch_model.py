@@ -19,12 +19,15 @@ import pytest
 import torch
 
 from tests.models import build_test_gguf
+from tpu_engine.kvcache.cache import default_layout as j_layout
+from tpu_engine.kvcache.cache import dequant_kv as j_dequant
 from tpu_engine.kvcache.cache import new_cache as j_cache
 from tpu_engine.model.llama import decode_loop as j_loop
 from tpu_engine.model.llama import forward_step as j_fwd
 from tpu_engine.model.loader import load_model as j_load
 from tpu_engine.sampling import SamplingParams
 from tpu_engine.sampling import device as JS
+from tpu_engine_torch.kvcache.cache import default_layout as t_layout
 from tpu_engine_torch.kvcache.cache import new_cache as t_cache
 from tpu_engine_torch.model.llama import decode_loop as t_loop
 from tpu_engine_torch.model.llama import forward_step as t_fwd
@@ -52,9 +55,10 @@ def mix_path(tmp_path_factory):
                            "tiny", n_layer=4, seed=2)
 
 
-def run_jax(lm, kind="f16", feed=FEED):
+def run_jax(lm, kind="f16", feed=FEED, layout="td"):
     c = lm.cfg
-    cache = j_cache(c.n_layer, 2, 64, c.n_kv_head, c.head_dim, kind=kind)
+    cache = j_cache(c.n_layer, 2, 64, c.n_kv_head, c.head_dim, kind=kind,
+                    layout=layout)
     logits, cache, _ = j_fwd(lm.weights, cache, jnp.asarray([PROMPT], jnp.int32),
                              jnp.asarray([1], jnp.int32), jnp.asarray([True]), c,
                              rot_cache=True)
@@ -67,9 +71,9 @@ def run_jax(lm, kind="f16", feed=FEED):
     return np.stack(rows)
 
 
-def run_port(weights, cfg, kind="f16", feed=FEED):
+def run_port(weights, cfg, kind="f16", feed=FEED, layout="td"):
     cache = t_cache(cfg.n_layer, 2, 64, cfg.n_kv_head, cfg.head_dim, kind=kind,
-                    device="cpu")
+                    layout=layout, device="cpu")
     one = torch.tensor([1], dtype=torch.int32)
     act = torch.tensor([True])
     logits, cache, _ = t_fwd(weights, cache, torch.tensor([PROMPT], dtype=torch.int32),
@@ -89,6 +93,51 @@ def test_f32_logits_match_jax(f32_path, kind):
     ref, got = run_jax(jl, kind), run_port(tl.weights, tl.cfg, kind)
     assert got.shape == (len(FEED) + 1, tl.cfg.n_vocab)
     np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("kind", ["q8_0", "q4_0"])
+def test_quantized_kv_logits_match_jax(f32_path, kind):
+    """Quantized KV in the layout both packages pick (default_layout:
+    "dt"), prefill then decode. The two packages' f32 K/V rows differ in
+    summation order (~1e-7), and a row value that sits on a rounding
+    boundary quantizes one step apart, which moves later logits by ~1e-3;
+    so each step starts both packages from the same cache bytes (JAX's),
+    holds the logits to the 1e-4 of f16, and holds what the port appended
+    to JAX's bytes within one quantization step (almost all identical)."""
+    jl, tl = j_load(f32_path), t_load(f32_path, device="cpu")
+    c = jl.cfg
+    layout = t_layout(kind, c.head_dim)
+    assert layout == j_layout(kind, c.head_dim) == "dt"
+    jc = j_cache(c.n_layer, 2, 64, c.n_kv_head, c.head_dim, kind=kind,
+                 layout=layout)
+    tc = t_cache(c.n_layer, 2, 64, c.n_kv_head, c.head_dim, kind=kind,
+                 layout=layout, device="cpu")
+    one, act = jnp.asarray([1], jnp.int32), jnp.asarray([True])
+    tone, tact = torch.tensor([1], dtype=torch.int32), torch.tensor([True])
+    planes = ("k", "v", "k_scale", "v_scale", "lengths")
+    same = total = 0
+    for toks in [PROMPT] + [[t] for t in FEED]:
+        for name in planes:  # the port starts from JAX's cache bytes
+            getattr(tc, name).copy_(torch.from_numpy(
+                np.array(getattr(jc, name))))
+        jlog, jc, _ = j_fwd(jl.weights, jc, jnp.asarray([toks], jnp.int32),
+                            one, act, c, rot_cache=True)
+        tlog, tc, _ = t_fwd(tl.weights, tc, torch.tensor([toks], dtype=torch.int32),
+                            tone, tact, tl.cfg, rot_cache=True)
+        np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog),
+                                   rtol=1e-4, atol=1e-4)
+        np.testing.assert_array_equal(tc.lengths.numpy(), np.asarray(jc.lengths))
+        for cells, scale in (("k", "k_scale"), ("v", "v_scale")):
+            jq, tq = np.asarray(getattr(jc, cells)), getattr(tc, cells).numpy()
+            js, ts = np.asarray(getattr(jc, scale)), getattr(tc, scale).numpy()
+            np.testing.assert_allclose(ts, js, rtol=1e-5, atol=0)
+            jd = np.asarray(j_dequant(jnp.swapaxes(jq, -1, -2), js, kind))
+            td = np.asarray(j_dequant(jnp.swapaxes(tq, -1, -2), ts, kind))
+            step = np.maximum(js, ts)[..., None] * (1 + 1e-5)
+            assert np.all(np.abs(jd - td) <= step)
+            same += int((jq == tq).sum())
+            total += jq.size
+    assert same >= 0.99 * total, (same, total)
 
 
 def _mapping(qt):

@@ -161,8 +161,6 @@ def test_full_cortex_flow(server, models):
 
 
 @pytest.mark.parametrize("extra,what", [
-    ({"cache_type": "q8_0"}, "quantized KV"),
-    ({"cache_type": "q4_0"}, "quantized KV"),
     ({"grp_attn_n": 4}, "self-extend"),
     ({"mmproj": "/nonexistent/mmproj.gguf"}, "multimodal"),
     ({"model_type": "embedding"}, "embedding"),
@@ -180,19 +178,42 @@ def test_loadmodel_refuses_later_slices(server, models, extra, what):
     assert status == 409
 
 
+@pytest.mark.parametrize("cache_type", ["q8_0", "q4_0", "q5_1"])
+def test_loadmodel_serves_quantized_kv(server, models, cache_type):
+    """Quantized KV loads (stored "dt", as kvcache.default_layout picks)
+    and serves a chat; an unknown cache_type (q5_1) warns and serves as
+    f16, as the reference does."""
+    mid = f"kv-{cache_type}"
+    status, resp = post(server, "/loadmodel",
+                        {**LOAD, "model": mid, "model_alias": mid,
+                         "llama_model_path": models[0],
+                         "cache_type": cache_type})
+    assert status == 200, resp
+    status, resp = post(server, "/v1/chat/completions", {
+        "model": mid, "max_tokens": 6, "temperature": 0,
+        "messages": [{"role": "user", "content": "hello world"}]})
+    assert status == 200, resp
+    assert 0 < resp["usage"]["completion_tokens"] <= 6
+    status, _ = post(server, "/unloadmodel", {"model": mid})
+    assert status == 200
+
+
 @pytest.fixture(scope="module")
 def twins(models):
     """The port's server and the JAX server, each with the same f32 model
-    loaded at 64 cells per slot (so long requests context-shift)."""
+    loaded at 64 cells per slot (so long requests context-shift), once per
+    KV cache type: model "twin" at f16, "twin-q8_0" and "twin-q4_0"."""
     from tpu_engine.api.server import make_server as jax_make_server
 
-    load = {"model": "twin", "llama_model_path": models[1], "ctx_len": 128,
-            "n_parallel": 2}
     srvs = [_serve(lambda port: make_server("127.0.0.1", port, device="cpu")),
             _serve(lambda port: jax_make_server("127.0.0.1", port))]
-    for _, base in srvs:
-        status, resp = post(base, "/loadmodel", load)
-        assert status == 200, resp
+    for model, cache_type in (("twin", "f16"), ("twin-q8_0", "q8_0"),
+                              ("twin-q4_0", "q4_0")):
+        load = {"model": model, "llama_model_path": models[1],
+                "ctx_len": 128, "n_parallel": 2, "cache_type": cache_type}
+        for _, base in srvs:
+            status, resp = post(base, "/loadmodel", load)
+            assert status == 200, resp
     yield [base for _, base in srvs]
     for srv, _ in srvs:
         srv.shutdown()
@@ -213,11 +234,8 @@ TWIN_REQUESTS = {
 }
 
 
-@pytest.mark.parametrize("case", sorted(TWIN_REQUESTS))
-def test_greedy_text_matches_jax_server(twins, case):
-    """Same f32 model, same greedy request: the port's server and the JAX
-    server return the same text, usage and finish reason."""
-    req = {"model": "twin", "temperature": 0, **TWIN_REQUESTS[case]}
+def _twin_outputs(twins, model, case):
+    req = {"model": model, "temperature": 0, **TWIN_REQUESTS[case]}
     outs = []
     for base in twins:
         status, resp = post(base, "/v1/chat/completions", req)
@@ -225,4 +243,22 @@ def test_greedy_text_matches_jax_server(twins, case):
         outs.append((resp["choices"][0]["message"]["content"], resp["usage"],
                      resp["choices"][0]["finish_reason"]))
     assert outs[0][1]["completion_tokens"] > 0
+    return outs
+
+
+@pytest.mark.parametrize("case", sorted(TWIN_REQUESTS))
+def test_greedy_text_matches_jax_server(twins, case):
+    """Same f32 model, same greedy request: the port's server and the JAX
+    server return the same text, usage and finish reason."""
+    outs = _twin_outputs(twins, "twin", case)
+    assert outs[0] == outs[1]
+
+
+@pytest.mark.parametrize("cache_type", ["q8_0", "q4_0"])
+@pytest.mark.parametrize("case", sorted(TWIN_REQUESTS))
+def test_greedy_text_matches_jax_server_quantized_kv(twins, case, cache_type):
+    """The same at cache_type q8_0 / q4_0: both servers quantize the same
+    rows to the same bytes, and the context-shift request requantizes the
+    re-roped K cells of a quantized "dt" cache."""
+    outs = _twin_outputs(twins, f"twin-{cache_type}", case)
     assert outs[0] == outs[1]

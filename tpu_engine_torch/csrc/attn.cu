@@ -1,373 +1,12 @@
-// Flash attention over the slot-paged "td" KV cache [L, S, KH, T, D] with
-// K stored pre-rotated, for the deferred-append forward step of
-// tpu_engine_torch/model/llama.py: the cache holds only the history (cells
-// < start[b]); the step's own K/V rows arrive in flight and fold into the
-// same online softmax.
+// Flash attention over the "td" KV cache [L, S, KH, T, Dk] (K stored
+// pre-rotated), f32, bf16, q8_0 or q4_0 cells; the kernels and their
+// design are in attn_common.cuh.
 //
 // attn_decode replaces tpu_engine/kernels/flash_attention.py:
 // _decode_kernel_bh (Tc = 1); attn_prefill replaces :_prefill_kernel
 // (Tc > 1, rotated=True).
-//
-// What bounds them on the H100: decode reads every live cache cell of the
-// slot once (2 * start * D cells of K and V per kv head, bf16 or f32)
-// against 3.35 TB/s; prefill over a long chunk is bound by the score and
-// PV multiply-adds (4 * rows * cells * D per kv head) against the f32 rate.
-// What the simple design does about it: one block per (row b, kv head)
-// (decode) or (row b, kv head, block of query positions) (prefill) reads
-// its cells straight from cache[li, slot_ids[b]] (no gather copy), 32 at a
-// time into shared memory as f32, so the G query heads of the kv head
-// share each load; the loop stops at the row's fill (work scales with the
-// live history, not the allocated T) and skips tiles wholly outside a
-// sliding window. Scores, softmax and the PV sum stay in f32 on the CUDA
-// cores. Position p of a "virtual cell" is its cell index for p < start
-// and start + j for in-flight row j, so one mask covers both:
-//   ok = p <= pos_row  and  (p < start or p - start < n_valid)
-//        and (window <= 0 or p > pos_row - window)
-// Masked scores are -1e30 (not -inf), as in the TPU kernels.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "attn_common.cuh"
 
-namespace {
-
-constexpr float NEG_INF = -1e30f;
-constexpr int TB = 32;     // cells per tile (one per lane in the softmax)
-constexpr int NTH = 128;   // threads per block
-constexpr int MAXD = 128;  // head_dim limit (one PV thread per dimension)
-
-__device__ __forceinline__ float ld(const float* p) { return *p; }
-__device__ __forceinline__ float ld(const __nv_bfloat16* p) {
-    return __bfloat162float(*p);
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-    return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-    return v;
-}
-
-__device__ __forceinline__ float cap(float s, float softcap) {
-    return softcap > 0.f ? tanhf(s / softcap) * softcap : s;
-}
-
-// Online-softmax fold of the score tile S[r][0..TB) of rows r < R, one
-// warp per row: S becomes p, and m/l/corr advance.
-__device__ __forceinline__ void softmax_tile(float* S, int ld_s, float* m_s,
-                                             float* l_s, float* c_s, int R)
-{
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    for (int r = warp; r < R; r += NTH / 32) {
-        const float s = S[r * ld_s + lane];
-        const float m_prev = m_s[r];
-        const float m_new = fmaxf(m_prev, warp_max(s));
-        const float p = expf(s - m_new);
-        const float sum = warp_sum(p);
-        S[r * ld_s + lane] = p;
-        if (lane == 0) {
-            const float corr = expf(m_prev - m_new);
-            c_s[r] = corr;
-            l_s[r] = l_s[r] * corr + sum;
-            m_s[r] = m_new;
-        }
-    }
-}
-
-// ---------------------------------------------------------------- decode
-template <typename CT, int MAXG>
-__global__ void __launch_bounds__(NTH)
-attn_decode_kernel(const float* __restrict__ q,      // [B, H, D]
-                   const float* __restrict__ k_new,  // [B, KH, D]
-                   const float* __restrict__ v_new,
-                   const CT* __restrict__ kc,        // [L, S, KH, T, D]
-                   const CT* __restrict__ vc,
-                   const int* __restrict__ slot_ids, const int* __restrict__ starts,
-                   float* __restrict__ out,          // [B, H, D]
-                   int KH, int G, int D, int S, int T, int li, int window,
-                   float scale, float softcap)
-{
-    __shared__ float Ks[TB][MAXD + 1];
-    __shared__ float Vs[TB][MAXD];
-    __shared__ float Qs[MAXG][MAXD];
-    __shared__ float Ss[MAXG][TB];
-    __shared__ float m_s[MAXG], l_s[MAXG], c_s[MAXG];
-
-    const int b = blockIdx.x / KH, kh = blockIdx.x % KH;
-    const int tid = threadIdx.x;
-    const int H = KH * G;
-    const int start = starts[b];
-    const int slot = min(max(slot_ids[b], 0), S - 1);
-    const size_t base = (((size_t)li * S + slot) * KH + kh) * (size_t)T * D;
-    const size_t new_off = ((size_t)b * KH + kh) * D;
-
-    for (int i = tid; i < G * D; i += NTH) {
-        const int g = i / D, d = i % D;
-        Qs[g][d] = q[((size_t)b * H + kh * G + g) * D + d];
-    }
-    if (tid < MAXG) {
-        m_s[tid] = NEG_INF;
-        l_s[tid] = 0.f;
-    }
-    float acc[MAXG];
-#pragma unroll
-    for (int g = 0; g < MAXG; g++) acc[g] = 0.f;
-
-    // the query sits at position `start`; cells below lo are outside the window
-    int lo = window > 0 ? max(0, start - window + 1) : 0;
-    lo = lo / TB * TB;
-    for (int t0 = lo; t0 <= start; t0 += TB) {
-        __syncthreads();
-        for (int i = tid; i < TB * D; i += NTH) {
-            const int t = i / D, d = i % D, p = t0 + t;
-            float kv = 0.f, vv = 0.f;
-            if (p < start) {
-                const size_t off = base + (size_t)p * D + d;
-                kv = ld(kc + off);
-                vv = ld(vc + off);
-            } else if (p == start) {  // the step's own row
-                kv = k_new[new_off + d];
-                vv = v_new[new_off + d];
-            }
-            Ks[t][d] = kv;
-            Vs[t][d] = vv;
-        }
-        __syncthreads();
-        for (int i = tid; i < G * TB; i += NTH) {
-            const int g = i / TB, t = i % TB, p = t0 + t;
-            float s = 0.f;
-            for (int d = 0; d < D; d++) s = fmaf(Qs[g][d], Ks[t][d], s);
-            s = cap(s * scale, softcap);
-            const bool ok = p <= start && (window <= 0 || p > start - window);
-            Ss[g][t] = ok ? s : NEG_INF;
-        }
-        __syncthreads();
-        softmax_tile(&Ss[0][0], TB, m_s, l_s, c_s, G);
-        __syncthreads();
-        if (tid < D) {
-#pragma unroll
-            for (int g = 0; g < MAXG; g++) {
-                if (g < G) {
-                    float a = acc[g] * c_s[g];
-                    for (int t = 0; t < TB; t++) a = fmaf(Ss[g][t], Vs[t][tid], a);
-                    acc[g] = a;
-                }
-            }
-        }
-    }
-    __syncthreads();
-    if (tid < D) {
-#pragma unroll
-        for (int g = 0; g < MAXG; g++)
-            if (g < G)
-                out[((size_t)b * H + kh * G + g) * D + tid] =
-                    acc[g] / fmaxf(l_s[g], 1e-30f);
-    }
-}
-
-// --------------------------------------------------------------- prefill
-template <typename CT, int MAXR>
-__global__ void __launch_bounds__(NTH)
-attn_prefill_kernel(const float* __restrict__ q,      // [B, Tc, H, D]
-                    const float* __restrict__ k_new,  // [B, KH, Tc, D]
-                    const float* __restrict__ v_new,
-                    const CT* __restrict__ kc,        // [L, S, KH, T, D]
-                    const CT* __restrict__ vc,
-                    const int* __restrict__ slot_ids,
-                    const int* __restrict__ starts,
-                    const int* __restrict__ n_valid,
-                    float* __restrict__ out,          // [B, Tc, H, D]
-                    int Tc, int KH, int G, int D, int S, int T, int li, int QB,
-                    int window, float scale, float softcap)
-{
-    extern __shared__ float smem[];
-    const int R = QB * G;  // query rows of this block: (position, head) pairs
-    float* Qs = smem;                  // [R][D]
-    float* Ks = Qs + R * D;            // [TB][D + 1]
-    float* Vs = Ks + TB * (D + 1);     // [TB][D]
-    float* Ss = Vs + TB * D;           // [R][TB]
-    float* m_s = Ss + R * TB;
-    float* l_s = m_s + R;
-    float* c_s = l_s + R;
-
-    const int b = blockIdx.x / KH, kh = blockIdx.x % KH, qb = blockIdx.y;
-    const int tid = threadIdx.x;
-    const int H = KH * G;
-    const int start = starts[b];
-    const int nv = n_valid[b];
-    const int slot = min(max(slot_ids[b], 0), S - 1);
-    const size_t base = (((size_t)li * S + slot) * KH + kh) * (size_t)T * D;
-    const size_t new_base = ((size_t)b * KH + kh) * (size_t)Tc * D;
-    const int t_lo = qb * QB;                // first query position (relative)
-    const int t_hi = min(Tc, t_lo + QB);     // one past the last
-
-    for (int i = tid; i < R * D; i += NTH) {
-        const int r = i / D, d = i % D;
-        const int t = t_lo + r / G, g = r % G;
-        Qs[i] = t < Tc ? q[(((size_t)b * Tc + t) * H + kh * G + g) * D + d] : 0.f;
-    }
-    for (int r = tid; r < R; r += NTH) {
-        m_s[r] = NEG_INF;
-        l_s[r] = 0.f;
-    }
-    float acc[MAXR];
-#pragma unroll
-    for (int r = 0; r < MAXR; r++) acc[r] = 0.f;
-
-    const int p_end = start + t_hi;  // virtual cells [lo, p_end)
-    int lo = window > 0 ? max(0, start + t_lo - window + 1) : 0;
-    lo = lo / TB * TB;
-    const int lane = tid & 31, wq = tid >> 5;
-    for (int t0 = lo; t0 < p_end; t0 += TB) {
-        __syncthreads();
-        for (int i = tid; i < TB * D; i += NTH) {
-            const int t = i / D, d = i % D, p = t0 + t;
-            float kv = 0.f, vv = 0.f;
-            if (p < start) {
-                const size_t off = base + (size_t)p * D + d;
-                kv = ld(kc + off);
-                vv = ld(vc + off);
-            } else if (p < p_end) {
-                const size_t off = new_base + (size_t)(p - start) * D + d;
-                kv = k_new[off];
-                vv = v_new[off];
-            }
-            Ks[t * (D + 1) + d] = kv;
-            Vs[t * D + d] = vv;
-        }
-        __syncthreads();
-        {   // scores: lane = cell, rows wq, wq + 4, ...
-            float s[MAXR / 4];
-#pragma unroll
-            for (int i = 0; i < MAXR / 4; i++) s[i] = 0.f;
-            for (int d = 0; d < D; d++) {
-                const float kd = Ks[lane * (D + 1) + d];
-#pragma unroll
-                for (int i = 0; i < MAXR / 4; i++) {
-                    const int r = wq + 4 * i;
-                    if (r < R) s[i] = fmaf(Qs[r * D + d], kd, s[i]);
-                }
-            }
-            const int p = t0 + lane;
-#pragma unroll
-            for (int i = 0; i < MAXR / 4; i++) {
-                const int r = wq + 4 * i;
-                if (r < R) {
-                    const int pos = start + t_lo + r / G;
-                    const bool ok = p <= pos && (p < start || p - start < nv)
-                                    && (window <= 0 || p > pos - window);
-                    Ss[r * TB + lane] = ok ? cap(s[i] * scale, softcap) : NEG_INF;
-                }
-            }
-        }
-        __syncthreads();
-        softmax_tile(Ss, TB, m_s, l_s, c_s, R);
-        __syncthreads();
-        if (tid < D) {
-#pragma unroll
-            for (int r = 0; r < MAXR; r++)
-                if (r < R) acc[r] *= c_s[r];
-            for (int t = 0; t < TB; t++) {
-                const float v = Vs[t * D + tid];
-#pragma unroll
-                for (int r = 0; r < MAXR; r++)
-                    if (r < R) acc[r] = fmaf(Ss[r * TB + t], v, acc[r]);
-            }
-        }
-    }
-    __syncthreads();
-    if (tid < D) {
-#pragma unroll
-        for (int r = 0; r < MAXR; r++) {
-            const int t = t_lo + r / G;
-            if (r < R && t < Tc)
-                out[(((size_t)b * Tc + t) * H + kh * G + r % G) * D + tid] =
-                    acc[r] / fmaxf(l_s[r], 1e-30f);
-        }
-    }
-}
-
-constexpr int DEC_MAXG = 8;
-constexpr int PRE_MAXR = 64;
-
-template <typename CT>
-int decode_launch(const void* q, const void* k_new, const void* v_new,
-                  const void* kc, const void* vc, const void* slot_ids,
-                  const void* starts, void* out, int B, int KH, int G, int D,
-                  int S, int T, int li, int window, float scale, float softcap,
-                  cudaStream_t stream)
-{
-    attn_decode_kernel<CT, DEC_MAXG><<<B * KH, NTH, 0, stream>>>(
-        (const float*)q, (const float*)k_new, (const float*)v_new,
-        (const CT*)kc, (const CT*)vc, (const int*)slot_ids,
-        (const int*)starts, (float*)out, KH, G, D, S, T, li, window, scale,
-        softcap);
-    return (int)cudaGetLastError();
-}
-
-template <typename CT>
-int prefill_launch(const void* q, const void* k_new, const void* v_new,
-                   const void* kc, const void* vc, const void* slot_ids,
-                   const void* starts, const void* n_valid, void* out, int B,
-                   int Tc, int KH, int G, int D, int S, int T, int li,
-                   int window, float scale, float softcap, cudaStream_t stream)
-{
-    const int QB = PRE_MAXR / G > 0 ? PRE_MAXR / G : 1;
-    const int R = QB * G;
-    const size_t smem = sizeof(float) *
-        ((size_t)R * D + TB * (D + 1) + TB * D + (size_t)R * TB + 3 * R);
-    auto kern = attn_prefill_kernel<CT, PRE_MAXR>;
-    cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    dim3 grid(B * KH, (Tc + QB - 1) / QB);
-    kern<<<grid, NTH, smem, stream>>>(
-        (const float*)q, (const float*)k_new, (const float*)v_new,
-        (const CT*)kc, (const CT*)vc, (const int*)slot_ids,
-        (const int*)starts, (const int*)n_valid, (float*)out, Tc, KH, G, D,
-        S, T, li, QB, window, scale, softcap);
-    return (int)cudaGetLastError();
-}
-
-}  // namespace
-
-// cache_bf16: 1 when the cells are bf16 ("f16" kind), 0 for f32.
-extern "C" int attn_decode(const void* q, const void* k_new, const void* v_new,
-                           const void* kc, const void* vc, int cache_bf16,
-                           const void* slot_ids, const void* starts, void* out,
-                           int B, int KH, int G, int D, int S, int T, int li,
-                           int window, float scale, float softcap, void* stream)
-{
-    if (G > DEC_MAXG || D > MAXD) return (int)cudaErrorInvalidValue;
-    if (cache_bf16)
-        return decode_launch<__nv_bfloat16>(q, k_new, v_new, kc, vc, slot_ids,
-                                            starts, out, B, KH, G, D, S, T, li,
-                                            window, scale, softcap,
-                                            (cudaStream_t)stream);
-    return decode_launch<float>(q, k_new, v_new, kc, vc, slot_ids, starts, out,
-                                B, KH, G, D, S, T, li, window, scale, softcap,
-                                (cudaStream_t)stream);
-}
-
-extern "C" int attn_prefill(const void* q, const void* k_new, const void* v_new,
-                            const void* kc, const void* vc, int cache_bf16,
-                            const void* slot_ids, const void* starts,
-                            const void* n_valid, void* out, int B, int Tc,
-                            int KH, int G, int D, int S, int T, int li,
-                            int window, float scale, float softcap, void* stream)
-{
-    if (G > PRE_MAXR || D > MAXD) return (int)cudaErrorInvalidValue;
-    if (cache_bf16)
-        return prefill_launch<__nv_bfloat16>(q, k_new, v_new, kc, vc, slot_ids,
-                                             starts, n_valid, out, B, Tc, KH, G,
-                                             D, S, T, li, window, scale, softcap,
-                                             (cudaStream_t)stream);
-    return prefill_launch<float>(q, k_new, v_new, kc, vc, slot_ids, starts,
-                                 n_valid, out, B, Tc, KH, G, D, S, T, li,
-                                 window, scale, softcap, (cudaStream_t)stream);
-}
+ATTN_ENTRY(attn_decode, 0, false)
+ATTN_ENTRY(attn_prefill, 1, false)

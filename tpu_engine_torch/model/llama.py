@@ -14,7 +14,9 @@ for every layer and slot at once (kvcache.append_step), in place.
 Quantized projections go through model/weights.qmatmul (the CUDA kernels
 qmm_nib4 / qmm_i8 on the card); attention through the hook below, which
 defaults to kernels/flash_attention.flash_attention (the CUDA kernels
-attn_decode / attn_prefill on the card, attention_reference on the CPU).
+attn_decode / attn_prefill for a "td" cache and attn_decode_dt /
+attn_prefill_dt for a "dt" cache on the card, attention_reference on the
+CPU). append_step quantizes the appended rows for q8_0/q4_0 caches.
 """
 
 from __future__ import annotations
@@ -95,19 +97,25 @@ def attention_reference(q, cache: KVCache, li: int, slot_ids, q_pos, n_valid,
                         k_new, v_new, cfg: ModelConfig, ga_n=1, ga_w=0,
                         rot_cache: bool = False, win=None) -> torch.Tensor:
     """Plain attention over the slot cache + in-flight rows; the plain
-    version of the attn_decode / attn_prefill kernels.
+    version of every attention kernel (attn_decode, attn_prefill,
+    attn_decode_dt, attn_prefill_dt).
 
-    q [B, Tc, H, D] rotated; cache [L, S, KH, T, D] holding history only
-    (cells < start = q_pos[:, 0]); k_new/v_new [B, KH, Tc, D] this step's
-    rows (K rotated). rot_cache: cached K is stored pre-rotated, otherwise
-    it is rotated here by its (self-extend-remapped) cell index.
-    Returns [B, Tc, H, D]."""
+    q [B, Tc, H, D] rotated; cache ("td" or "dt", any kind) holding
+    history only (cells < start = q_pos[:, 0]); k_new/v_new [B, KH, Tc, D]
+    this step's rows (K rotated). rot_cache: cached K is stored
+    pre-rotated, otherwise it is rotated here by its (self-extend-remapped)
+    cell index. Returns [B, Tc, H, D]."""
     B, Tc, H, D = q.shape
     KH = k_new.shape[1]
     G = H // KH
     sl = slot_ids.long()
-    kf = dequant_kv(cache.k[li, sl], None, cache.kind)  # [B, KH, T, D]
-    vf = dequant_kv(cache.v[li, sl], None, cache.kind)
+    kc, vc = cache.k[li, sl], cache.v[li, sl]
+    if cache.layout == "dt":  # [B, KH, Dk, T] -> [B, KH, T, Dk]
+        kc, vc = kc.transpose(-1, -2), vc.transpose(-1, -2)
+    ks = cache.k_scale[li, sl] if cache.quantized else None
+    vs = cache.v_scale[li, sl] if cache.quantized else None
+    kf = dequant_kv(kc, ks, cache.kind)  # [B, KH, T, D]
+    vf = dequant_kv(vc, vs, cache.kind)
     T = kf.shape[2]
     cell = torch.arange(T, dtype=torch.int32, device=q.device)[None, :].expand(B, T)
     kf = kf.transpose(1, 2)  # [B, T, KH, D]

@@ -1,9 +1,11 @@
 """Multi-model engine registry — the LlamaEngine analog (PyTorch port).
 
-Options this slice of the port does not carry yet (a quantized
-cache_type, grp_attn_n > 1, mmproj, embedding/non-causal models,
-tensor_parallel or data_parallel > 1) are refused at /loadmodel with a
-"not yet supported by tpu_engine_torch" error, never served another way.
+Options the port does not carry yet (grp_attn_n > 1, mmproj,
+embedding/non-causal models, tensor_parallel or data_parallel > 1) are
+refused at /loadmodel with a "not yet supported by tpu_engine_torch"
+error, never served another way. cache_type f16, q8_0 and q4_0 are
+served; an unknown type warns and falls back to f16, as the reference
+does.
 
 Rebuilds the reference's model lifecycle (SURVEY.md section 2a "LlamaEngine";
 reference src/llama_engine.cc): /loadmodel JSON -> engine options
@@ -102,8 +104,8 @@ class EngineRegistry:
         if cache_type not in VALID_KV_TYPES:
             log.warning("unsupported cache_type %s, using f16", cache_type)
             cache_type = "f16"
-        if cache_type != "f16":
-            return _unsupported(f"cache_type {cache_type!r} (quantized KV)")
+        # q8_0/q4_0 KV is stored in the "dt" layout (kvcache.default_layout)
+        # and served by attn_decode_dt / attn_prefill_dt on the card
         if int(body.get("grp_attn_n", 1)) > 1:
             return _unsupported("grp_attn_n > 1 (self-extend)")
         if body.get("mmproj"):
