@@ -3,14 +3,18 @@
     python3 chip_smoke.py            # needs one CUDA card (an H100 here)
 
 Builds every CUDA kernel of the serving path from tpu_engine_torch/csrc,
-holds each against its plain PyTorch version at the shapes the serving
-path gives it and times it (K stored pre-rotated, and unrotated for
-self-extend), runs a Llama-2-7B-width Q4_K_M model (depth cut to 4
-layers, random weights from a seed) through the kernels and through the
-plain versions at f16, q8_0 and q4_0 KV and with self-extend at f16 and
-q4_0, then serves it over the cortex HTTP flow once per KV cache type and
-twice more with self-extend (grp_attn_n 4, grp_attn_w 128) at f16 and
-q8_0 (/loadmodel -> 8 concurrent /v1/chat/completions, plus one that
+holds each against its plain PyTorch version (qmm_nib4 against its twin
+qmm_nib4_plain, which rounds to bf16 as it does) at the shapes the
+serving path gives it and times it (tools/timing.py), at every weight
+layout of the qmm kernels and, for attention, K stored pre-rotated and
+unrotated (self-extend), head_dim 64-256 and query groups of 1-72. Then
+runs a Llama-2-7B-width Q4_K_M model (depth cut to 4 layers, random
+weights from a seed) once through every kernel against each kernel's
+twin, and at f16, q8_0 and q4_0 KV and with self-extend at f16 and q4_0
+through the attention kernels against attention_reference; then serves
+it over the cortex HTTP flow once per KV cache type and twice more with
+self-extend (grp_attn_n 4, grp_attn_w 128) at f16 and q8_0
+(/loadmodel -> 8 concurrent /v1/chat/completions, plus one that
 context-shifts at q8_0 -> /unloadmodel) and checks that each cycle
 launched every kernel of its path and no other attention kernel. Any
 failure raises and exits non-zero. The last lines are the kernel table as
@@ -43,14 +47,17 @@ from tpu_engine_torch.model import llama as LL
 from tpu_engine_torch.model import weights as W
 from tpu_engine_torch.model.config import ModelConfig
 from tpu_engine_torch.serve import ops as OPS
+from tpu_engine_torch.tools.timing import Timer
 
 HBM_BYTES_S = 3.35e12  # H100 SXM HBM3
-F32_FLOPS_S = 67e12    # H100 SXM f32 (CUDA cores); the kernels multiply in f32
+F32_FLOPS_S = 67e12    # H100 SXM f32 (CUDA cores): qmm_i8 and attention
+BF16_FLOPS_S = 989e12  # H100 SXM dense bf16 (tensor cores): qmm_nib4
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 N_LAYER = 4  # depth cut of the Llama-2-7B widths (32 layers) for the smoke
 ITERS = 20   # timed launches per kernel shape
-QMM_TOL = 1e-4     # max |kernel - plain| / max |plain|: f32 vs f32, sum order
+QMM_TOL = 1e-4     # max |kernel - twin| / max |twin|: the same roundings,
+                   # sum order (and qmm_nib4's bf16x3 bias product)
 ATTN_TOL = 2e-4    # max |kernel - plain| (outputs O(1)): f32 sums, sum order
 LOGIT_TOL = 2e-3   # max |dlogit| / max |logit| over the model phase
 TIE_TOL = 1e-5     # self-extend: one row's top-1 may differ where plain's
@@ -68,28 +75,6 @@ def smi_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout
     return out.strip().splitlines()[0]
-
-
-class Timer:
-    """Median device time of fn over iters launches, each after an L2
-    flush (a 256 MB write), with a CUDA event pair around the launch."""
-
-    def __init__(self, iters: int):
-        self.iters = iters
-        self.flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
-
-    def __call__(self, fn) -> float:
-        for _ in range(2):
-            fn()
-        ev = [(torch.cuda.Event(enable_timing=True),
-               torch.cuda.Event(enable_timing=True)) for _ in range(self.iters)]
-        for e0, e1 in ev:
-            self.flush.zero_()
-            e0.record()
-            fn()
-            e1.record()
-        torch.cuda.synchronize()
-        return float(np.median([e0.elapsed_time(e1) for e0, e1 in ev]))
 
 
 # ---------------------------------------------------------------- kernels
@@ -117,46 +102,86 @@ QMM_SHAPES = [  # (tensor, kind, group, has_bias, N, K) at Llama-2-7B widths
     ("output Q6_K", "i8", 16, False, 32000, 4096),
     ("w_down Q6_K", "i8", 16, False, 4096, 11008),
 ]
+# every other layout of each kernel (quant/device_format.py LAYOUTS), and
+# a nib4 tensor without a bias, on wo's shape; and a ragged one (N, K and
+# M off every tile and chunk edge): correctness only
+QMM_LAYOUTS = [  # (tensor, kind, group, has_bias, N, K, Ms)
+    ("wo Q4_0", "nib4", 32, True, 4096, 4096, (8, 32, 512)),
+    ("wo Q4_1", "nib4", 32, True, 4096, 4096, (8, 32, 512)),
+    ("wo Q2_K", "nib4", 16, True, 4096, 4096, (8, 32, 512)),
+    ("wo nib4 no bias", "nib4", 32, False, 4096, 4096, (8, 32, 512)),
+    ("ragged Q4_K", "nib4", 32, True, 1000, 4128, (3, 45, 300)),
+    ("wo Q8_0", "i8", 32, False, 4096, 4096, (8, 32)),
+    ("wo Q5_K", "i8", 32, True, 4096, 4096, (8, 32)),
+]
+
+
+def qmm_check(name, qt, x) -> tuple[float, float]:
+    """qmm_cuda against the kernel's plain twin on x; (max abs, rel err)."""
+    y = DM.qmm_cuda(x, qt)
+    ref = DM.qmatmul_twin(x, qt)
+    torch.cuda.synchronize()
+    err = float((y - ref).abs().max())
+    rel = err / float(ref.abs().max())
+    if not (torch.isfinite(y).all() and rel <= QMM_TOL):
+        raise AssertionError(f"qmm {name} M={x.shape[0]}: rel err {rel:.3e} "
+                             f"> {QMM_TOL}")
+    return err, rel
 
 
 def qmm_phase(timer: Timer, gen) -> list[dict]:
     rows = []
+    for name, kind, group, has_bias, n, k, ms in QMM_LAYOUTS:
+        qt = rand_qtensor(gen, n, k, kind, group, has_bias)
+        for m in ms:
+            x = torch.randn((m, k), generator=gen, device="cuda")
+            err, rel = qmm_check(name, qt, x)
+            log(f"qmm {name} {n}x{k} M={m} check: max_abs_err {err:.3e} rel "
+                f"{rel:.3e} (tol {QMM_TOL})")
+            rows.append(dict(
+                kernel="qmm_nib4" if kind == "nib4" else "qmm_i8",
+                shape=f"{name} {n}x{k} M={m}", M=m, N=n, K=k, timed=False,
+                max_abs_err=err, max_rel_err=rel, tol_rel=QMM_TOL))
     for name, kind, group, has_bias, n, k in QMM_SHAPES:
         qt = rand_qtensor(gen, n, k, kind, group, has_bias)
-        w_f32 = W.dequant(qt)  # the yardstick's pre-dequantized weight
+        w_f32 = W.dequant(qt)  # the yardsticks' pre-dequantized weight
+        w_bf16 = w_f32.to(torch.bfloat16) if kind == "nib4" else None
         # one M per tile configuration of qmm.cu: decode (<= 8), a B=1
         # prefill bucket (9..64) and a grouped prefill (> 64)
         for m in (8, 32, 512):
             x = torch.randn((m, k), generator=gen, device="cuda")
-            y = DM.qmm_cuda(x, qt)
-            ref = DM.qmatmul_plain(x, qt)
-            torch.cuda.synchronize()
-            err = float((y - ref).abs().max())
-            scale = float(ref.abs().max())
-            rel = err / scale
-            if not (torch.isfinite(y).all() and rel <= QMM_TOL):
-                raise AssertionError(f"qmm {name} M={m}: rel err {rel:.3e} "
-                                     f"> {QMM_TOL}")
-            wbytes = qt.nbytes
-            bytes_ = x.numel() * 4 + wbytes + m * n * 4
-            flops = 2.0 * m * n * k
-            bound = max(bytes_ / HBM_BYTES_S, flops / F32_FLOPS_S) * 1e3
+            err, rel = qmm_check(name, qt, x)
+            # qmm_nib4 reads x as bf16 and multiplies on the tensor cores
+            # (bf16 rate), qmm_i8 reads f32 x and multiplies in f32
+            nib4 = kind == "nib4"
+            ng = k // group
+            bytes_ = (x.numel() * (2 if nib4 else 4) + qt.nbytes + m * n * 4
+                      + (m * ng * 4 if nib4 and has_bias else 0))
+            flops = 2.0 * m * n * (k + (ng if nib4 and has_bias else 0))
+            t_ops = flops / (BF16_FLOPS_S if nib4 else F32_FLOPS_S)
+            bound = max(bytes_ / HBM_BYTES_S, t_ops) * 1e3
             row = dict(
-                kernel="qmm_nib4" if kind == "nib4" else "qmm_i8",
-                shape=f"{name} {n}x{k} M={m}", M=m, N=n, K=k,
+                kernel="qmm_nib4" if nib4 else "qmm_i8",
+                shape=f"{name} {n}x{k} M={m}", M=m, N=n, K=k, timed=True,
                 max_abs_err=err, max_rel_err=rel, tol_rel=QMM_TOL,
                 ms=timer(lambda: DM.qmm_cuda(x, qt)),
-                plain_ms=timer(lambda: DM.qmatmul_plain(x, qt)),
+                plain_ms=timer(lambda: DM.qmatmul_twin(x, qt)),
                 library_ms=timer(lambda: torch.matmul(x, w_f32.t())),
                 bound_ms=bound,
-                bound_by="bytes" if bytes_ / HBM_BYTES_S >= flops / F32_FLOPS_S
+                bound_by="bytes" if bytes_ / HBM_BYTES_S >= t_ops
                 else "operations")
+            lib16 = ""
+            if nib4:
+                xb = x.to(torch.bfloat16)
+                row["library_bf16_ms"] = timer(
+                    lambda: torch.matmul(xb, w_bf16.t()))
+                lib16 = f" library_bf16_ms {row['library_bf16_ms']:.4f}"
             log(f"qmm {row['shape']}: max_abs_err {err:.3e} rel {rel:.3e} "
                 f"(tol {QMM_TOL}) kernel_ms {row['ms']:.4f} bound_ms "
                 f"{bound:.4f} ({row['bound_by']}) library_ms "
-                f"{row['library_ms']:.4f} plain_ms {row['plain_ms']:.4f}")
+                f"{row['library_ms']:.4f}{lib16} plain_ms {row['plain_ms']:.4f}")
             rows.append(row)
-        del w_f32
+        del w_f32, w_bf16
     return rows
 
 
@@ -317,9 +342,53 @@ def attn_cases(D=128):
     add("attn_decode_dt", "B=8 KH=4 G=8 D=64 T=512 fills 1..511 (TinyLlama)",
         B=8, KH=4, G=8, D=64, T=512, starts=FILLS, Tc=1, n_valid=[1] * 8,
         kind="f16", layout="dt")
+    # head_dim 256 at G=2 (Gemma 2's heads): one timed shape per kernel
+    wide = dict(KH=8, G=2, D=256)
+    for layout, kind in (("td", "f16"), ("dt", "q8_0")):
+        sfx = "_dt" if layout == "dt" else ""
+        add("attn_decode" + sfx, "B=8 KH=8 G=2 D=256 T=512 fills 1..511",
+            B=8, T=512, starts=FILLS, Tc=1, n_valid=[1] * 8, kind=kind,
+            layout=layout, **wide)
+        add("attn_prefill" + sfx, "B=1 Tc=512 history 0 KH=8 G=2 D=256",
+            B=1, T=1024, starts=[0], Tc=512, n_valid=[512], kind=kind,
+            layout=layout, **wide)
+    # 16 query heads per kv head: one timed shape for the "td" pair
+    g16 = dict(KH=2, G=16, D=D, kind="f16")
+    add("attn_decode", f"B=8 KH=2 G=16 D={D} T=512 fills 1..511", B=8, T=512,
+        starts=FILLS, Tc=1, n_valid=[1] * 8, **g16)
+    add("attn_prefill", f"B=1 Tc=512 history 0 KH=2 G=16 D={D}", B=1,
+        T=1024, starts=[0], Tc=512, n_valid=[512], **g16)
     se = f"ga_n={ATTN_GA[0]} ga_w={ATTN_GA[1]}"
     return cases + [(k + "_rope", f"{label} {se}", kw, main)
                     for k, label, kw, main in cases]
+
+
+# head shapes checked for correctness in every kernel, layout and kind:
+# (KH, G, D) at head_dim 256 (Gemma G=1, Gemma 2 G=2), G=16 at D=128, and
+# groups past one block's chunk of query heads (decode 8; prefill 64 rows
+# at D <= 128, 32 at D = 256)
+HEAD_SHAPES = [(4, 1, 256), (2, 2, 256), (2, 16, 128)]
+CHUNKED_HEADS = [(1, 72, 128), (1, 40, 256)]
+
+
+def head_shape_checks():
+    """(kernel, attn_case kwargs) of the correctness-only head-shape grid."""
+    out = []
+    for (KH, G, D), kinds in [(h, ("f32", "f16", "q8_0", "q4_0"))
+                              for h in HEAD_SHAPES] + [
+                                  (h, ("f16", "q4_0")) for h in CHUNKED_HEADS]:
+        for layout in ("td", "dt"):
+            for kind in kinds:
+                sfx = "_dt" if layout == "dt" else ""
+                head = dict(KH=KH, G=G, D=D, T=256, kind=kind, layout=layout)
+                for rope in ("", "_rope"):
+                    out.append(("attn_decode" + sfx + rope, dict(
+                        B=3, starts=[0, 100, 255], Tc=1, n_valid=[1] * 3,
+                        **head)))
+                    out.append(("attn_prefill" + sfx + rope, dict(
+                        B=2, starts=[0, 90], Tc=100, n_valid=[100, 61],
+                        **head)))
+    return out
 
 
 def attn_check(gen, kname, kw, win=0, cap=0.0, ga=ATTN_GA, rope_dim=None):
@@ -388,9 +457,11 @@ def attn_phase(timer: Timer, gen) -> list[dict]:
         extra.append((kname, 0, 0.0, kw, dict(rope_dim=D // 2)))
         if layout == "td":
             extra.append((kname, 0, 0.0, dict(kw, kind="f16"), dict(ga=(1, 0))))
+    extra += [(k, 0, 0.0, kw, {}) for k, kw in head_shape_checks()]
     for kname, win, cap, kw, opts in extra:
         *_, err, rel = attn_check(gen, kname, kw, win, cap, **opts)
         log(f"{kname} check window={win} softcap={cap} B={kw['B']} "
+            f"KH={kw['KH']} G={kw['G']} D={kw['D']} "
             f"{kw.get('kind', 'f16')} {kw.get('layout', 'td')} {opts}: "
             f"max_abs_err {err:.3e} rel {rel:.3e} (tol {ATTN_TOL} abs)")
     for kname, shape, kw, main in attn_cases(D):
@@ -421,6 +492,97 @@ def attn_phase(timer: Timer, gen) -> list[dict]:
 
 
 # ------------------------------------------------------------------ model
+def qt_cols(qt: W.QTensor, k0: int, k1: int) -> W.QTensor:
+    """Columns [k0, k1) of a quantized weight (k0, k1 on group edges)."""
+    per = 2 if qt.kind == "nib4" else 1
+    g0, g1 = k0 // qt.group, k1 // qt.group
+    return W.QTensor(
+        qs=qt.qs[:, k0 // per:k1 // per].contiguous(),
+        scale=qt.scale[:, g0:g1].contiguous(),
+        bias=None if qt.bias is None else qt.bias[:, g0:g1].contiguous(),
+        kind=qt.kind, group=qt.group, shape=(qt.shape[0], k1 - k0))
+
+
+def twin_reordered(x, qt):
+    """qmatmul_twin's function with its f32 sums over K in another order:
+    the second half of K, then the first, added."""
+    k = qt.shape[1]
+    h = k // 2 // qt.group * qt.group
+    return (DM.qmatmul_twin(x[..., h:], qt_cols(qt, h, k))
+            + DM.qmatmul_twin(x[..., :h], qt_cols(qt, 0, h)))
+
+
+def model_qmm_run(cfg, run) -> dict:
+    """f16 through every kernel, against each kernel's plain twin.
+
+    qmm_nib4 rounds x to bf16 as the TPU kernel does, so a difference of
+    one f32 rounding upstream flips some bf16 roundings downstream and
+    grows layer by layer: two runs of the same bf16 function whose sums
+    differ only in order part by far more than LOGIT_TOL at the output.
+    So each quantized product of the kernel run is also computed by its
+    twin on the same input, and the kernel is held there to QMM_TOL (every
+    call of the 128-token prefill and 16 decode steps, all layers). The
+    kernel run's logits are held to the twin run's (twins and
+    attention_reference, teacher-forced) by top-1 on every row, and their
+    max |dlogit| to twice the twin run's own against a run of
+    twin_reordered (the same function, its sums in another order), or
+    LOGIT_TOL if that is larger."""
+    shadow = {"calls": 0, "max_rel": 0.0}
+
+    def shadowed(x, qt):
+        y = DM.qmatmul(x, qt)
+        ref = DM.qmatmul_twin(x, qt)
+        rel = float((y - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
+        shadow["calls"] += 1
+        shadow["max_rel"] = max(shadow["max_rel"], rel)
+        return y
+
+    mode = dict(rot_cache=True)
+    before = {**DM.LAUNCHES, **FA.LAUNCHES}
+    W.set_qmatmul_impl(shadowed)
+    try:
+        t0 = time.time()
+        k_logits, toks = run("f16", mode)
+        t_kernel = time.time() - t0
+        went = sorted(k for k in before
+                      if {**DM.LAUNCHES, **FA.LAUNCHES}[k] > before[k])
+        LL.set_attention_impl(LL.attention_reference)
+        t0 = time.time()
+        logits = {}
+        for name, fn in (("twin", DM.qmatmul_twin),
+                         ("reordered", twin_reordered)):
+            W.set_qmatmul_impl(fn)
+            logits[name], _ = run("f16", mode, feed=toks)
+        t_plain = time.time() - t0
+    finally:
+        W.set_qmatmul_impl(None)
+        LL.set_attention_impl(None)
+    sfx = "_dt" if default_layout("f16", cfg.head_dim) == "dt" else ""
+    if went != ["attn_decode" + sfx, "attn_prefill" + sfx, "qmm_i8", "qmm_nib4"]:
+        raise AssertionError(f"model phase qmm: launched {went}")
+    if not torch.isfinite(k_logits).all() or k_logits.shape != (17, cfg.n_vocab):
+        raise AssertionError("model phase qmm: non-finite or misshapen logits")
+    p_logits = logits["twin"]
+    pmax = float(p_logits.abs().max())
+    rel = float((k_logits - p_logits).abs().max()) / pmax
+    floor = float((logits["reordered"] - p_logits).abs().max()) / pmax
+    bound = max(LOGIT_TOL, 2 * floor)
+    differ = (k_logits.argmax(-1) != p_logits.argmax(-1)).nonzero()[:, 0].tolist()
+    log(f"model qmm (f16, all kernels {went}): {shadow['calls']} quantized "
+        f"products, max rel err against the twin on the same input "
+        f"{shadow['max_rel']:.3e} (tol {QMM_TOL}); logits against the twins' "
+        f"run: top-1 rows that differ {differ} (need none), max |dlogit| "
+        f"{rel:.3e} of max |logit| {pmax:.4f} (bound {bound:.3e}: twice the "
+        f"twins' reordered run's {floor:.3e}, or {LOGIT_TOL}); wall "
+        f"{t_kernel:.2f}s kernels, {t_plain:.2f}s plain (two runs)")
+    if shadow["max_rel"] > QMM_TOL or differ or rel > bound:
+        raise AssertionError("model phase qmm: kernels disagree with twins")
+    return dict(calls=shadow["calls"], max_rel_per_call=shadow["max_rel"],
+                top1_differ=differ, max_logit=pmax, rel_dlogit=rel,
+                rel_dlogit_reordered=floor, bound=bound,
+                wall_s_kernels=t_kernel, wall_s_plain=t_plain)
+
+
 def model_phase(path: str) -> dict:
     from tpu_engine_torch.kvcache.cache import new_cache
     from tpu_engine_torch.model.loader import load_model
@@ -462,31 +624,30 @@ def model_phase(path: str) -> dict:
     plain_mode = dict(rot_cache=True)
     # self-extend: K stored unrotated; the 128-token prompt crosses ga_w
     se_mode = dict(ga_n=4, ga_w=64, rot_cache=False)
-    # f16 ("td"): every kernel against every plain version. q8_0/q4_0
-    # ("dt"): the attention kernels against attention_reference with the
-    # qmm kernels in both runs, so both runs quantize the same K/V rows
-    # of the first layer. "+se": the rope attention kernels against
-    # attention_reference, the qmm kernels in both runs (the f16 run holds
-    # them to their plain versions)
+    out["qmm"] = model_qmm_run(cfg, run)
+    # the attention kernels against attention_reference, the quantized
+    # products f32 (qmatmul_plain) in both runs: without qmm_nib4's bf16
+    # roundings nothing amplifies the sum-order differences, so the gate is
+    # PR 3's. q8_0/q4_0 ("dt") runs quantize the same K/V rows of the first
+    # layer in both runs; "+se": the rope attention kernels
     for label, kind, mode in (("f16", "f16", plain_mode),
                               ("q8_0", "q8_0", plain_mode),
                               ("q4_0", "q4_0", plain_mode),
                               ("f16+se", "f16", se_mode),
                               ("q4_0+se", "q4_0", se_mode)):
-        before = dict(FA.LAUNCHES)
-        t0 = time.time()
-        k_logits, toks = run(kind, mode)
-        t_kernel = time.time() - t0
-        went = {k for k in FA.LAUNCHES if FA.LAUNCHES[k] > before[k]}
-        rope = {k for k in FA.LAUNCHES if k.endswith("_rope")}
-        # the kernels of the mode's K storage, and no other attention kernel
-        other = went - rope if mode is se_mode else went & rope
-        if not went or other:
-            raise AssertionError(f"model phase {label}: launched {went}")
-        if label == "f16":
-            W.set_qmatmul_impl(DM.qmatmul_plain)
-        LL.set_attention_impl(LL.attention_reference)
+        W.set_qmatmul_impl(DM.qmatmul_plain)
         try:
+            before = dict(FA.LAUNCHES)
+            t0 = time.time()
+            k_logits, toks = run(kind, mode)
+            t_kernel = time.time() - t0
+            went = {k for k in FA.LAUNCHES if FA.LAUNCHES[k] > before[k]}
+            rope = {k for k in FA.LAUNCHES if k.endswith("_rope")}
+            # the kernels of the mode's K storage, and no other attention kernel
+            other = went - rope if mode is se_mode else went & rope
+            if not went or other:
+                raise AssertionError(f"model phase {label}: launched {went}")
+            LL.set_attention_impl(LL.attention_reference)
             t0 = time.time()
             # teacher-forced on the kernel's tokens
             p_logits, _ = run(kind, mode, feed=toks)
@@ -780,7 +941,8 @@ def _chat_body(tok, i: int, n_tokens: int) -> dict:
 FA_SRC = "tpu_engine/kernels/flash_attention.py"
 SOURCES = {  # kernel -> (source, the TPU kernel(s) it replaces)
     "qmm_nib4": ("tpu_engine_torch/csrc/qmm.cu",
-                 "tpu_engine/kernels/dequant_matmul.py:209"),
+                 "tpu_engine/kernels/dequant_matmul.py:209, "
+                 "scripts/qmm_variants.py:39, scripts/qmm_variants.py:69"),
     "qmm_i8": ("tpu_engine_torch/csrc/qmm.cu",
                "tpu_engine/kernels/dequant_matmul.py:259"),
     "attn_decode": ("tpu_engine_torch/csrc/attn.cu", f"{FA_SRC}:204"),
@@ -806,7 +968,8 @@ def summarize(rows: list[dict], launches: dict) -> list[dict]:
     out = []
     for name, (src, repl) in SOURCES.items():
         if name.startswith("qmm"):
-            sel = [r for r in rows if r["kernel"] == name and r["M"] == 8]
+            sel = [r for r in rows if r["kernel"] == name and r["M"] == 8
+                   and r["timed"]]
         else:
             sel = [r for r in rows if r["kernel"] == name and r["main"]]
         b_bytes = sum(r["bound_ms"] for r in sel if r["bound_by"] == "bytes")
@@ -828,6 +991,7 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.time()
     smi = smi_line()
     log(f"device: {smi}; torch {torch.__version__} cuda {torch.version.cuda}; "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
@@ -863,6 +1027,8 @@ def main() -> int:
     launches = {k: sum(c["launches"][k] for c in detail["server"].values())
                 for k in SOURCES}
     detail["launches"] = launches
+    detail["wall_s"] = time.time() - t_start
+    log(f"chip_smoke: every phase in {detail['wall_s']:.1f}s")
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:
         json.dump(detail, fh, indent=1)

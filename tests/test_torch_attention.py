@@ -216,3 +216,40 @@ def test_dt_matches_jax(case, kind):
 def test_dt_quantized_masks_match_jax(case, kind):
     check_case(kind, "dt", 300 + list(DT_EXTRA_CASES).index(case),
                *DT_EXTRA_CASES[case])
+
+
+# head shapes past the first slices' CUDA limits: Gemma's head_dim 256
+# (G = 2) and 16 query heads per kv head
+WIDE_CASES = {
+    "d256_decode": (2, 1, 128, [100, 7], dict(H=4, KH=2, D=256), None, None),
+    "d256_prefill": (2, 16, 128, [0, 40], dict(H=4, KH=2, D=256), None,
+                     [16, 9]),
+    "g16_decode": (2, 1, 128, [100, 7], dict(H=32, KH=2, D=64), None, None),
+    "g16_prefill": (1, 8, 64, [20], dict(H=32, KH=2, D=64), None, None),
+}
+
+
+@pytest.mark.parametrize("kind,layout", [("f16", "td"), ("q8_0", "dt")])
+@pytest.mark.parametrize("case", list(WIDE_CASES))
+def test_wide_heads_match_jax(case, kind, layout):
+    check_case(kind, layout, 400 + list(WIDE_CASES).index(case),
+               *WIDE_CASES[case])
+
+
+@pytest.mark.parametrize("H,KH,D,ok", [(4, 2, 256, True), (32, 2, 128, True),
+                                       (64, 1, 64, True), (4, 2, 258, False),
+                                       (4, 2, 63, False), (6, 4, 64, False)])
+def test_kernel_check_head_limits(H, KH, D, ok):
+    """The CUDA wrapper takes any even head_dim up to 256 and any number of
+    query heads per kv head: such shapes get past the head check and stop
+    only at the device check (CPU tensors here); others are refused."""
+    B, Tc, T = 1, 1, 8
+    cells = torch.zeros((1, B, KH, T, D), dtype=torch.bfloat16)
+    cache = TKV(cells, cells.clone(), torch.zeros((B,), dtype=torch.int32),
+                None, None, kind="f16", layout="td")
+    ints = torch.zeros((B,), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA tensors" if ok else
+                       "unsupported heads/head_dim"):
+        TFA._check(torch.zeros((B, Tc, H, D)), torch.zeros((B, KH, Tc, D)),
+                   torch.zeros((B, KH, Tc, D)), cache, ints, ints, ints,
+                   False, None)

@@ -10,7 +10,12 @@ kernels.dequant_matmul) against the JAX package.
     matmul, so only the summation order differs: 1e-5 of max |y|;
   - qmatmul_plain against pallas_qmatmul in interpret mode for Q4_K and
     Q6_K at M in {1, 8, 16}: the TPU kernel rounds x and q*scale to bf16
-    before its dot (2^-9 relative each), so 1e-2 of max |y|.
+    before its dot (2^-9 relative each), so 1e-2 of max |y|;
+  - qmm_nib4_plain, the plain twin of the CUDA kernel qmm_nib4, which
+    rounds as the TPU kernel does, against pallas_qmatmul in interpret
+    mode for every nib4 type (Q4_K, Q4_0, Q4_1, Q2_K) at M in {1, 8, 16}:
+    only the order of f32 sums and the TPU kernel's bf16x3 bias product
+    (exact to ~2^-17 of each term) differ, so 1e-4 of max |y|.
 K = 3840 makes the JAX loader lane-pad every group cycle (ng = 120 or 240
 -> k_pad), so the k_pad path is exercised.
 """
@@ -37,6 +42,8 @@ torch.set_num_threads(2)
 TYPES = sorted(LAYOUTS, key=int)
 N, K = 8, 3840          # k_pad shape (dequant tests)
 NK, KK = 128, 512       # kernel-tileable shape (pallas interpret tests)
+KERNEL_TYPES = (GGMLType.Q4_K, GGMLType.Q6_K, GGMLType.Q4_0, GGMLType.Q4_1,
+                GGMLType.Q2_K)
 
 
 @pytest.fixture(scope="module")
@@ -48,7 +55,7 @@ def gguf(tmp_path_factory):
     for ty in TYPES:
         w.add_tensor(f"w.{ty.name}", rng.standard_normal((N, K)).astype(
             np.float32) * 0.05, ty)
-    for ty in (GGMLType.Q4_K, GGMLType.Q6_K):
+    for ty in KERNEL_TYPES:
         w.add_tensor(f"k.{ty.name}", rng.standard_normal((NK, KK)).astype(
             np.float32) * 0.05, ty)
     w.write()
@@ -126,10 +133,20 @@ def test_qmatmul_plain_matches_xla(gguf, ty):
                                atol=1e-5 * np.abs(ref).max())
 
 
+PALLAS_CASES = [  # (type, port function, tolerance of max |y|)
+    (GGMLType.Q4_K, TDM.qmatmul_plain, 1e-2),
+    (GGMLType.Q6_K, TDM.qmatmul_plain, 1e-2),
+    *((ty, TDM.qmm_nib4_plain, 1e-4) for ty in (
+        GGMLType.Q4_K, GGMLType.Q4_0, GGMLType.Q4_1, GGMLType.Q2_K)),
+]
+
+
 @pytest.mark.parametrize("m", [1, 8, 16])
-@pytest.mark.parametrize("ty", [GGMLType.Q4_K, GGMLType.Q6_K],
-                         ids=lambda t: t.name)
-def test_qmatmul_plain_matches_pallas_interpret(gguf, ty, m):
+@pytest.mark.parametrize(
+    "ty,fn,tol", PALLAS_CASES,
+    ids=[ty.name + ("" if fn is TDM.qmatmul_plain else "-twin")
+         for ty, fn, _ in PALLAS_CASES])
+def test_qmatmul_plain_matches_pallas_interpret(gguf, ty, fn, tol, m):
     jqt = jax_qt(gguf, f"k.{ty.name}")
     tqt = carried(jqt)
     x = np.random.default_rng(m).standard_normal((m, KK)).astype(np.float32)
@@ -139,10 +156,32 @@ def test_qmatmul_plain_matches_pallas_interpret(gguf, ty, m):
     finally:
         JDM.disable()
         JDM._INTERPRET = False
-    got = TDM.qmatmul_plain(torch.from_numpy(x), tqt).numpy()
+    got = fn(torch.from_numpy(x), tqt).numpy()
     assert got.shape == (m, NK)
     np.testing.assert_allclose(got, ref, rtol=0,
-                               atol=1e-2 * np.abs(ref).max())
+                               atol=tol * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("ty", [GGMLType.Q4_K, GGMLType.Q2_K, GGMLType.Q6_K],
+                         ids=lambda t: t.name)
+def test_qmatmul_twin_routes_to_each_kernels_twin(gguf, ty):
+    """qmatmul_twin gives nib4 weights qmm_nib4_plain (bf16 roundings: not
+    qmatmul_plain's f32 product) and i8 weights qmatmul_plain, bit for bit;
+    qmatmul on a CPU tensor stays qmatmul_plain."""
+    tqt = carried(jax_qt(gguf, f"k.{ty.name}"))
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (3, KK)).astype(np.float32))
+    twin = TDM.qmatmul_twin(x, tqt)
+    plain = TDM.qmatmul_plain(x, tqt)
+    torch.testing.assert_close(TDM.qmatmul(x, tqt), plain, rtol=0, atol=0)
+    if tqt.kind == "nib4":
+        torch.testing.assert_close(twin, TDM.qmm_nib4_plain(x, tqt),
+                                   rtol=0, atol=0)
+        assert not torch.equal(twin, plain)
+        torch.testing.assert_close(twin, plain, rtol=0,
+                                   atol=1e-2 * float(plain.abs().max()))
+    else:
+        torch.testing.assert_close(twin, plain, rtol=0, atol=0)
 
 
 def test_from_jax_params_refuses_packed_scales(gguf):

@@ -166,6 +166,7 @@ def test_full_cortex_flow(server, models):
     ({"model_type": "embedding"}, "embedding"),
     ({"tensor_parallel": 2}, "tensor_parallel"),
     ({"data_parallel": 2}, "data_parallel"),
+    ({"tensor_parallel": "2"}, "tensor_parallel=2"),
 ])
 def test_loadmodel_refuses_later_slices(server, models, extra, what):
     status, resp = post(base := server, "/loadmodel",
@@ -176,6 +177,36 @@ def test_loadmodel_refuses_later_slices(server, models, extra, what):
     assert what in resp["error"]
     status, _ = post(base, "/modelstatus", {"model": "refused"})
     assert status == 409
+
+
+def test_loadmodel_tensor_parallel_auto(server, models):
+    """tensor_parallel "auto" resolves, as in the JAX package, to the
+    attached devices over data_parallel: 1 on the CPU, served unsharded
+    with the same greedy text as "1". "auto" beside more data_parallel
+    than devices is not a valid grid, with the JAX package's message."""
+    texts = []
+    for tp in ("auto", 1):
+        mid = f"tp-{tp}"
+        status, resp = post(server, "/loadmodel",
+                            {**LOAD, "model": mid, "model_alias": mid,
+                             "llama_model_path": models[0],
+                             "tensor_parallel": tp})
+        assert status == 200, resp
+        status, resp = post(server, "/v1/chat/completions", {
+            "model": mid, "max_tokens": 6, "temperature": 0,
+            "messages": [{"role": "user", "content": "hello world"}]})
+        assert status == 200, resp
+        texts.append(resp["choices"][0]["message"]["content"])
+        status, _ = post(server, "/unloadmodel", {"model": mid})
+        assert status == 200
+    assert texts[0] == texts[1]
+    status, resp = post(server, "/loadmodel",
+                        {**LOAD, "model": "grid", "model_alias": "grid",
+                         "llama_model_path": models[0],
+                         "tensor_parallel": "auto", "data_parallel": 2})
+    assert status == 400
+    assert resp["error"] == ("tensor_parallel=0 x data_parallel=2 is not a "
+                             "valid grid for 1 attached devices")
 
 
 @pytest.mark.parametrize("cache_type", ["q8_0", "q4_0", "q5_1"])

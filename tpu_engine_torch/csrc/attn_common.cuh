@@ -34,13 +34,16 @@
 // of scale each when quantized) against 3.35 TB/s; prefill over a long
 // chunk is bound by the score and PV multiply-adds (4 * rows * cells * D
 // per kv head) against the f32 rate.
-// What the simple design does about it: one block per (row b, kv head)
-// (decode) or (row b, kv head, block of query positions) (prefill) reads
-// its cells straight from cache[li, slot_ids[b]] (no gather copy), 32 at a
-// time into shared memory as f32 (dequantized on the way), so the G query
-// heads of the kv head share each load. Under "td" neighbouring threads
-// load neighbouring d of one cell; under "dt" neighbouring cells of one d,
-// so both read memory in order. The loop stops at the row's fill (work
+// What the simple design does about it: one block per (row b, kv head,
+// chunk of up to 8 query heads) (decode) or (row b, kv head, block of
+// query positions, chunk of query heads) (prefill) reads its cells
+// straight from cache[li, slot_ids[b]] (no gather copy), 32 at a time into
+// shared memory as f32 (dequantized on the way), so the query heads of a
+// chunk share each load. Any head_dim D <= 256 (even) and any query-group
+// size G run: a thread owns PV dimensions tid and, above D = 128, tid +
+// 128; a G past one chunk takes more blocks, each loading its own tiles.
+// Under "td" neighbouring threads load neighbouring d of one cell; under
+// "dt" neighbouring cells of one d, so both read memory in order. The loop stops at the row's fill (work
 // scales with the live history, not the allocated T) and skips tiles
 // wholly outside a sliding window. Scores, softmax and the PV sum stay in
 // f32 on the CUDA cores. Position p of a "virtual cell" is its cell index
@@ -61,9 +64,9 @@ namespace attn {
 constexpr float NEG_INF = -1e30f;
 constexpr int TB = 32;     // cells per tile (one per lane in the softmax)
 constexpr int NTH = 128;   // threads per block
-constexpr int MAXD = 128;  // head_dim limit (one PV thread per dimension)
-constexpr int DEC_MAXG = 8;
-constexpr int PRE_MAXR = 64;
+constexpr int MAXD = 256;  // head_dim limit: PV dimensions tid and tid + NTH
+constexpr int DEC_MAXG = 8;   // query heads per decode block
+constexpr int PRE_MAXR = 64;  // query rows per prefill block at D <= NTH
 
 enum Kind { F32 = 0, BF16 = 1, Q8 = 2, Q4 = 3 };
 
@@ -234,17 +237,34 @@ __device__ __forceinline__ void plane_bases(const Args& a, int KIND_Q4, int b,
 }
 
 // ---------------------------------------------------------------- decode
-template <int KIND, bool DT, bool ROT, int MAXG>
+// One block per (row b, kv head, chunk of MAXG query heads of the group):
+// grid.y walks the chunks, so any G runs; each chunk's block loads the kv
+// head's tiles itself. Thread tid owns PV dimensions tid + j * NTH, j < NDT.
+// The tiles' row strides are fixed by NDT (LD = NDT * NTH + 1), so the
+// score loop's addresses fold to constants.
+template <int KIND, bool DT, bool ROT, int MAXG, int NDT>
 __global__ void __launch_bounds__(NTH) decode_kernel(const Args a)
 {
-    __shared__ float Ks[TB][MAXD + 1];
-    __shared__ float Vs[TB][MAXD + 1];
-    __shared__ float Qs[MAXG][MAXD];
-    __shared__ float Ss[MAXG][TB];
-    __shared__ float m_s[MAXG], l_s[MAXG], c_s[MAXG];
-
+    constexpr int DQ = NDT * NTH, LD = DQ + 1;  // Qs and K/V row strides
+    float *Ks, *Vs, *Qs, *Ss, *m_s;  // [TB][LD], [TB][LD], [MAXG][DQ], [MAXG][TB]
+    if constexpr (NDT == 1) {
+        // static arrays at D <= 128 (38 KB): the same layout in dynamic
+        // shared memory ran attn_decode 3-4% slower (tools/attn_ab.py)
+        __shared__ float ks[TB * LD], vs[TB * LD], qs[MAXG * DQ], ss[MAXG * TB],
+            mlc[3 * MAXG];
+        Ks = ks, Vs = vs, Qs = qs, Ss = ss, m_s = mlc;
+    } else {
+        extern __shared__ float smem[];
+        Ks = smem, Vs = Ks + TB * LD, Qs = Vs + TB * LD, Ss = Qs + MAXG * DQ;
+        m_s = Ss + MAXG * TB;
+    }
+    float* l_s = m_s + MAXG;
+    float* c_s = l_s + MAXG;
     const int KH = a.KH, G = a.G, D = a.D;
+
     const int b = blockIdx.x / KH, kh = blockIdx.x % KH;
+    const int g0 = blockIdx.y * MAXG;     // first query head of this block
+    const int Gb = min(MAXG, G - g0);     // query heads of this block
     const int tid = threadIdx.x;
     const int H = KH * G;
     const int start = a.starts[b];
@@ -252,67 +272,85 @@ __global__ void __launch_bounds__(NTH) decode_kernel(const Args a)
     size_t cbase, sbase;
     plane_bases(a, KIND == Q4, b, kh, &cbase, &sbase);
     const size_t new_base = ((size_t)b * KH + kh) * D;
+    const size_t q_base = ((size_t)b * H + kh * G + g0) * D;
 
-    for (int i = tid; i < G * D; i += NTH) {
+    for (int i = tid; i < Gb * D; i += NTH) {
         const int g = i / D, d = i % D;
-        Qs[g][d] = a.q[((size_t)b * H + kh * G + g) * D + d];
+        Qs[g * DQ + d] = a.q[q_base + i];
     }
     if (tid < MAXG) {
         m_s[tid] = NEG_INF;
         l_s[tid] = 0.f;
     }
-    float acc[MAXG];
+    float acc[NDT][MAXG];
 #pragma unroll
-    for (int g = 0; g < MAXG; g++) acc[g] = 0.f;
+    for (int j = 0; j < NDT; j++)
+#pragma unroll
+        for (int g = 0; g < MAXG; g++) acc[j][g] = 0.f;
 
     // the query sits at position `start`; cells below lo are outside the window
     int lo = window > 0 ? max(0, start - window + 1) : 0;
     lo = lo / TB * TB;
     for (int t0 = lo; t0 <= start; t0 += TB) {
         __syncthreads();
-        load_tile<KIND, DT, ROT>(&Ks[0][0], &Vs[0][0], MAXD + 1, a, cbase,
-                                 sbase, new_base, t0, start, start + 1);
+        load_tile<KIND, DT, ROT>(Ks, Vs, LD, a, cbase, sbase, new_base, t0,
+                                 start, start + 1);
         __syncthreads();
-        for (int i = tid; i < G * TB; i += NTH) {
+        for (int i = tid; i < Gb * TB; i += NTH) {
             const int g = i / TB, t = i % TB, p = t0 + t;
             float s = 0.f;
 #pragma unroll 8
-            for (int d = 0; d < D; d++) s = fmaf(Qs[g][d], Ks[t][d], s);
+            for (int d = 0; d < D; d++) s = fmaf(Qs[g * DQ + d], Ks[t * LD + d], s);
             s = cap(s * a.scale, a.softcap);
             const bool ok = p <= start && (window <= 0 || p > start - window);
-            Ss[g][t] = ok ? s : NEG_INF;
+            Ss[g * TB + t] = ok ? s : NEG_INF;
         }
         __syncthreads();
-        softmax_tile(&Ss[0][0], TB, m_s, l_s, c_s, G);
+        softmax_tile(Ss, TB, m_s, l_s, c_s, Gb);
         __syncthreads();
-        if (tid < D) {
 #pragma unroll
-            for (int g = 0; g < MAXG; g++) {
-                if (g < G) {
-                    float acc_g = acc[g] * c_s[g];
-                    for (int t = 0; t < TB; t++) acc_g = fmaf(Ss[g][t], Vs[t][tid], acc_g);
-                    acc[g] = acc_g;
+        for (int j = 0; j < NDT; j++) {
+            const int d = tid + j * NTH;
+            if (d < D) {
+#pragma unroll
+                for (int g = 0; g < MAXG; g++) {
+                    if (g < Gb) {
+                        float acc_g = acc[j][g] * c_s[g];
+                        for (int t = 0; t < TB; t++)
+                            acc_g = fmaf(Ss[g * TB + t], Vs[t * LD + d], acc_g);
+                        acc[j][g] = acc_g;
+                    }
                 }
             }
         }
     }
     __syncthreads();
-    if (tid < D) {
 #pragma unroll
-        for (int g = 0; g < MAXG; g++)
-            if (g < G)
-                a.out[((size_t)b * H + kh * G + g) * D + tid] =
-                    acc[g] / fmaxf(l_s[g], 1e-30f);
+    for (int j = 0; j < NDT; j++) {
+        const int d = tid + j * NTH;
+        if (d < D) {
+#pragma unroll
+            for (int g = 0; g < MAXG; g++)
+                if (g < Gb)
+                    a.out[q_base + (size_t)g * D + d] =
+                        acc[j][g] / fmaxf(l_s[g], 1e-30f);
+        }
     }
 }
 
 // --------------------------------------------------------------- prefill
-template <int KIND, bool DT, bool ROT, int MAXR>
-__global__ void __launch_bounds__(NTH) prefill_kernel(const Args a, int QB)
+// One block per (row b, kv head, QB query positions, chunk of GC query
+// heads): R = QB * GC rows, row r = (position r / GC, head g0 + r % GC).
+// grid.z walks the head chunks, so any G runs. Thread tid owns PV
+// dimensions tid + j * NTH, j < NDT; at NDT = 2 the launch halves MAXR so
+// that acc[NDT][MAXR] keeps its 64 registers.
+template <int KIND, bool DT, bool ROT, int MAXR, int NDT>
+__global__ void __launch_bounds__(NTH) prefill_kernel(const Args a, int QB,
+                                                      int GC)
 {
     extern __shared__ float smem[];
     const int KH = a.KH, G = a.G, D = a.D, Tc = a.Tc;
-    const int R = QB * G;  // query rows of this block: (position, head) pairs
+    const int R = QB * GC;  // query rows of this block: (position, head) pairs
     const int lds = D + 1;
     float* Qs = smem;                  // [R][D]
     float* Ks = Qs + R * D;            // [TB][D + 1]
@@ -323,6 +361,7 @@ __global__ void __launch_bounds__(NTH) prefill_kernel(const Args a, int QB)
     float* c_s = l_s + R;
 
     const int b = blockIdx.x / KH, kh = blockIdx.x % KH, qb = blockIdx.y;
+    const int g0 = blockIdx.z * GC;          // first query head of the chunk
     const int tid = threadIdx.x;
     const int H = KH * G;
     const int start = a.starts[b];
@@ -336,16 +375,19 @@ __global__ void __launch_bounds__(NTH) prefill_kernel(const Args a, int QB)
 
     for (int i = tid; i < R * D; i += NTH) {
         const int r = i / D, d = i % D;
-        const int t = t_lo + r / G, g = r % G;
-        Qs[i] = t < Tc ? a.q[(((size_t)b * Tc + t) * H + kh * G + g) * D + d] : 0.f;
+        const int t = t_lo + r / GC, g = g0 + r % GC;
+        Qs[i] = t < Tc && g < G
+                    ? a.q[(((size_t)b * Tc + t) * H + kh * G + g) * D + d] : 0.f;
     }
     for (int r = tid; r < R; r += NTH) {
         m_s[r] = NEG_INF;
         l_s[r] = 0.f;
     }
-    float acc[MAXR];
+    float acc[NDT][MAXR];
 #pragma unroll
-    for (int r = 0; r < MAXR; r++) acc[r] = 0.f;
+    for (int j = 0; j < NDT; j++)
+#pragma unroll
+        for (int r = 0; r < MAXR; r++) acc[j][r] = 0.f;
 
     const int p_end = start + t_hi;  // virtual cells [lo, p_end)
     int lo = window > 0 ? max(0, start + t_lo - window + 1) : 0;
@@ -377,7 +419,7 @@ __global__ void __launch_bounds__(NTH) prefill_kernel(const Args a, int QB)
             for (int i = 0; i < MAXR / 4; i++) {
                 const int r = wq + 4 * i;
                 if (r < R) {
-                    const int pos = start + t_lo + r / G;
+                    const int pos = start + t_lo + r / GC;
                     const bool ok = p <= pos && (p < start || p - start < nv)
                                     && (window <= 0 || p > pos - window);
                     Ss[r * TB + lane] = ok ? cap(s[i] * a.scale, a.softcap) : NEG_INF;
@@ -387,52 +429,84 @@ __global__ void __launch_bounds__(NTH) prefill_kernel(const Args a, int QB)
         __syncthreads();
         softmax_tile(Ss, TB, m_s, l_s, c_s, R);
         __syncthreads();
-        if (tid < D) {
 #pragma unroll
-            for (int r = 0; r < MAXR; r++)
-                if (r < R) acc[r] *= c_s[r];
-            for (int t = 0; t < TB; t++) {
-                const float v = Vs[t * lds + tid];
+        for (int j = 0; j < NDT; j++) {
+            const int d = tid + j * NTH;
+            if (d < D) {
 #pragma unroll
                 for (int r = 0; r < MAXR; r++)
-                    if (r < R) acc[r] = fmaf(Ss[r * TB + t], v, acc[r]);
+                    if (r < R) acc[j][r] *= c_s[r];
+                for (int t = 0; t < TB; t++) {
+                    const float v = Vs[t * lds + d];
+#pragma unroll
+                    for (int r = 0; r < MAXR; r++)
+                        if (r < R) acc[j][r] = fmaf(Ss[r * TB + t], v, acc[j][r]);
+                }
             }
         }
     }
     __syncthreads();
-    if (tid < D) {
 #pragma unroll
-        for (int r = 0; r < MAXR; r++) {
-            const int t = t_lo + r / G;
-            if (r < R && t < Tc)
-                a.out[(((size_t)b * Tc + t) * H + kh * G + r % G) * D + tid] =
-                    acc[r] / fmaxf(l_s[r], 1e-30f);
+    for (int j = 0; j < NDT; j++) {
+        const int d = tid + j * NTH;
+        if (d < D) {
+#pragma unroll
+            for (int r = 0; r < MAXR; r++) {
+                const int t = t_lo + r / GC, g = g0 + r % GC;
+                if (r < R && t < Tc && g < G)
+                    a.out[(((size_t)b * Tc + t) * H + kh * G + g) * D + d] =
+                        acc[j][r] / fmaxf(l_s[r], 1e-30f);
+            }
         }
     }
+}
+
+template <int KIND, bool DT, bool ROT, int NDT>
+int decode_launch_d(const Args& a, cudaStream_t stream)
+{
+    constexpr int DQ = NDT * NTH, MG = DEC_MAXG;  // the kernel's layout
+    const size_t smem = NDT == 1 ? 0 : sizeof(float) *
+        (2 * TB * (DQ + 1) + MG * DQ + MG * TB + 3 * MG);
+    auto kern = decode_kernel<KIND, DT, ROT, DEC_MAXG, NDT>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    dim3 grid(a.B * a.KH, (a.G + DEC_MAXG - 1) / DEC_MAXG);
+    kern<<<grid, NTH, smem, stream>>>(a);
+    return (int)cudaGetLastError();
 }
 
 template <int KIND, bool DT, bool ROT>
 int decode_launch(const Args& a, cudaStream_t stream)
 {
-    decode_kernel<KIND, DT, ROT, DEC_MAXG><<<a.B * a.KH, NTH, 0, stream>>>(a);
+    return a.D > NTH ? decode_launch_d<KIND, DT, ROT, 2>(a, stream)
+                     : decode_launch_d<KIND, DT, ROT, 1>(a, stream);
+}
+
+template <int KIND, bool DT, bool ROT, int NDT>
+int prefill_launch_d(const Args& a, cudaStream_t stream)
+{
+    constexpr int MAXR = PRE_MAXR / NDT;
+    const int GC = min(a.G, MAXR);  // query heads per block
+    const int QB = MAXR / GC;       // query positions per block
+    const int R = QB * GC;
+    const int D = a.D;
+    const size_t smem = sizeof(float) *
+        ((size_t)R * D + 2 * TB * (D + 1) + (size_t)R * TB + 3 * R);
+    auto kern = prefill_kernel<KIND, DT, ROT, MAXR, NDT>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    dim3 grid(a.B * a.KH, (a.Tc + QB - 1) / QB, (a.G + GC - 1) / GC);
+    kern<<<grid, NTH, smem, stream>>>(a, QB, GC);
     return (int)cudaGetLastError();
 }
 
 template <int KIND, bool DT, bool ROT>
 int prefill_launch(const Args& a, cudaStream_t stream)
 {
-    const int QB = PRE_MAXR / a.G > 0 ? PRE_MAXR / a.G : 1;
-    const int R = QB * a.G;
-    const int D = a.D;
-    const size_t smem = sizeof(float) *
-        ((size_t)R * D + 2 * TB * (D + 1) + (size_t)R * TB + 3 * R);
-    auto kern = prefill_kernel<KIND, DT, ROT, PRE_MAXR>;
-    cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    dim3 grid(a.B * a.KH, (a.Tc + QB - 1) / QB);
-    kern<<<grid, NTH, smem, stream>>>(a, QB);
-    return (int)cudaGetLastError();
+    return a.D > NTH ? prefill_launch_d<KIND, DT, ROT, 2>(a, stream)
+                     : prefill_launch_d<KIND, DT, ROT, 1>(a, stream);
 }
 
 // The entry point of one layout and K storage: checks the limits, then
@@ -440,8 +514,7 @@ int prefill_launch(const Args& a, cudaStream_t stream)
 template <bool DT, bool ROT>
 int attention(int prefill, int kind, const Args& a, cudaStream_t stream)
 {
-    if (a.D > MAXD || (a.D % 2) || a.G < 1 ||
-        a.G > (prefill ? PRE_MAXR : DEC_MAXG) || (!prefill && a.Tc != 1))
+    if (a.D > MAXD || (a.D % 2) || a.G < 1 || (!prefill && a.Tc != 1))
         return (int)cudaErrorInvalidValue;
     if ((kind == Q8 || kind == Q4) && (a.ksc == nullptr || a.vsc == nullptr))
         return (int)cudaErrorInvalidValue;

@@ -1,20 +1,32 @@
 """Fused dequantize + matmul: the CUDA kernels qmm_nib4 and qmm_i8.
 
 They replace the TPU kernels tpu_engine/kernels/dequant_matmul.py
-_nib4_kernel and _i8_kernel (sources: csrc/qmm.cu). Both compute
-y[M, N] = x[M, K] @ dequant(W).T in f32 for a natural-layout QTensor
-(model/weights.py). The TPU kernel rounds x and w to bf16 before its dot;
-these keep f32 throughout, so they agree with the plain version to f32
-summation-order rounding.
+_nib4_kernel and _i8_kernel (sources: csrc/qmm.cu); qmm_nib4 also takes
+the ideas of the measurement variants scripts/qmm_variants.py _v2_kernel
+and _v3_kernel. Both compute y[M, N] = x[M, K] @ dequant(W).T for a
+natural-layout QTensor (model/weights.py), each as its TPU kernel does:
+
+  - qmm_nib4 (Q4_K, Q4_0, Q4_1, Q2_K) on the tensor cores: x and
+    q * scale rounded to bf16, f32 sums, and the bias folded in as the
+    f32 group sums of the bf16 x times the bias (xsum, made here as the
+    JAX wrapper makes it). Its plain twin is qmm_nib4_plain.
+  - qmm_i8 (Q8_0, Q6_K, Q5_*, Q3_K) in f32 throughout. Its plain twin is
+    qmatmul_plain.
+
+qmatmul_plain is f32 dequant + f32 matmul, the function of the JAX
+package's XLA path. It is what qmatmul runs on a CPU tensor, as the JAX
+package runs XLA's f32 product on the CPU and its bf16 Pallas kernel on
+the TPU. qmatmul_twin picks each weight's kernel twin (qmm_nib4_plain or
+qmatmul_plain): the plain run that computes what the kernels compute.
 
 qmatmul() is the wrapper the model calls: on a CUDA tensor it launches the
-kernel (or raises); on a CPU tensor it runs qmatmul_plain, the plain
-PyTorch version of the same function.
+kernel (or raises); on a CPU tensor it runs qmatmul_plain.
 """
 
 from __future__ import annotations
 
 import ctypes
+from dataclasses import replace
 
 import torch
 
@@ -33,24 +45,61 @@ def qmatmul_plain(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
     return y.reshape(*lead, n).to(x.dtype)
 
 
+def _nib4_operands(x2: torch.Tensor, qt: QTensor):
+    """qmm_nib4's activation operands, made as the JAX wrapper makes them:
+    xb = bf16(x) [M, K] and, with a bias, xsum [M, K/G] f32, the sum of xb
+    over each group (None without a bias)."""
+    xb = x2.to(torch.bfloat16).contiguous()
+    if qt.bias is None:
+        return xb, None
+    m, k = xb.shape
+    return xb, torch.sum(xb.view(m, k // qt.group, qt.group), -1,
+                         dtype=torch.float32)
+
+
+def qmm_nib4_plain(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
+    """Plain twin of qmm_nib4 (nib4 weights): sum_k bf16(x) bf16(q scale)
+    in f32, plus xsum @ bias.T. x [..., K]."""
+    n, k = qt.shape
+    lead = x.shape[:-1]
+    xb, xsum = _nib4_operands(x.reshape(-1, k), qt)
+    w = dequant(replace(qt, bias=None)).to(torch.bfloat16)
+    y = xb.float() @ w.float().t()
+    if xsum is not None:
+        y = y + xsum @ qt.bias.t()
+    return y.reshape(*lead, n).to(x.dtype)
+
+
+def qmatmul_twin(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
+    """The plain twin of the kernel qmatmul launches for qt on the card:
+    qmm_nib4_plain for nib4 weights, qmatmul_plain for i8."""
+    return (qmm_nib4_plain if qt.kind == "nib4" else qmatmul_plain)(x, qt)
+
+
 def _fn(name: str):
+    """The launcher `name`: qmm_nib4 (x, xsum, qs, scale, bias, y, M, N, K,
+    group, stream) or qmm_i8 (x, qs, scale, bias, y, M, N, K, group,
+    stream)."""
     f = getattr(_build.load("qmm"), name)
     if f.argtypes is None:
-        f.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        n_ptr = 6 if name == "qmm_nib4" else 5
+        f.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 4
+                      + [ctypes.c_void_p])
         f.restype = ctypes.c_int
     return f
 
 
 def qmm_cuda(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
-    """Launch qmm_nib4 / qmm_i8 on x [M, K] f32 (contiguous, on the card);
-    returns a new y [M, N] f32."""
+    """Launch qmm_nib4 / qmm_i8 on x [M, K] on the card (qmm_nib4 takes it
+    rounded to bf16, with its group sums; qmm_i8 as f32); returns a new
+    y [M, N] f32."""
     n, k = qt.shape
     if qt.kind not in ("nib4", "i8"):
         raise ValueError(f"qmm kernels take nib4/i8 weights, not {qt.kind}")
     if x.device.type != "cuda" or qt.qs.device != x.device:
         raise ValueError("qmm_cuda: x and the weight must be on one CUDA device")
-    if x.dtype != torch.float32 or x.dim() != 2 or x.shape[1] != k:
-        raise ValueError(f"qmm_cuda: x must be f32 [M, {k}], got "
+    if not x.is_floating_point() or x.dim() != 2 or x.shape[1] != k:
+        raise ValueError(f"qmm_cuda: x must be float [M, {k}], got "
                          f"{tuple(x.shape)} {x.dtype}")
     qdt, qcols = ((torch.uint8, k // 2) if qt.kind == "nib4"
                   else (torch.int8, k))
@@ -66,19 +115,25 @@ def qmm_cuda(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
                 or not t.is_contiguous() or t.device != x.device):
             raise ValueError(f"qmm_cuda: {name} must be f32 [{n}, {ng}] "
                              "contiguous on the device")
-    if not (x.is_contiguous() and qt.qs.is_contiguous()):
-        raise ValueError("qmm_cuda: x and qs must be contiguous")
-    if x.data_ptr() % 16 or qt.qs.data_ptr() % 16:
-        raise ValueError("qmm_cuda: x and qs must be 16-byte aligned")
+    if not qt.qs.is_contiguous() or qt.qs.data_ptr() % 16:
+        raise ValueError("qmm_cuda: qs must be contiguous and 16-byte aligned")
+    if qt.kind == "nib4":
+        xk, xsum = _nib4_operands(x, qt)
+    else:
+        xk, xsum = x.to(torch.float32).contiguous(), None
+    if xk.data_ptr() % 16:  # a view into the middle of a larger tensor
+        xk = xk.clone()
     m = x.shape[0]
     y = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m == 0:
         return y
+    P = _build.ptr
     name = "qmm_nib4" if qt.kind == "nib4" else "qmm_i8"
+    ops = [P(xk)] + ([None if xsum is None else P(xsum)]
+                     if qt.kind == "nib4" else [])
     rc = _fn(name)(
-        _build.ptr(x), _build.ptr(qt.qs), _build.ptr(qt.scale),
-        None if qt.bias is None else _build.ptr(qt.bias), _build.ptr(y),
-        m, n, k, qt.group, _build.stream_ptr(x.device))
+        *ops, P(qt.qs), P(qt.scale), None if qt.bias is None else P(qt.bias),
+        P(y), m, n, k, qt.group, _build.stream_ptr(x.device))
     _build.check(rc, name)
     LAUNCHES[name] += 1
     return y
@@ -90,7 +145,4 @@ def qmatmul(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
         return qmatmul_plain(x, qt)
     n, k = qt.shape
     lead = x.shape[:-1]
-    x2 = x.reshape(-1, k).to(torch.float32).contiguous()
-    if x2.data_ptr() % 16:  # a view into the middle of a larger tensor
-        x2 = x2.clone()
-    return qmm_cuda(x2, qt).reshape(*lead, n).to(x.dtype)
+    return qmm_cuda(x.reshape(-1, k), qt).reshape(*lead, n).to(x.dtype)

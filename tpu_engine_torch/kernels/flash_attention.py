@@ -101,8 +101,14 @@ def cache_rope_tables(cache: KVCache, cfg: ModelConfig, ga_n, ga_w):
 
 def _check(q, k_new, v_new, cache: KVCache, slot_ids, starts, n_valid, dt,
            tables):
-    """Validate the operands of one launch; returns (B, Tc, H, D, S, KH, T)."""
+    """Validate the operands of one launch; returns (B, Tc, H, D, S, KH, T).
+    The kernels take any even head_dim up to 256 and any number of query
+    heads per kv head (attn_common.cuh)."""
     B, Tc, H, D = q.shape
+    L, S, KH = cache.k.shape[:3]
+    if D > 256 or D % 2 or H % KH:
+        raise ValueError(f"attention kernels: unsupported heads/head_dim "
+                         f"H={H} KH={KH} D={D}")
     dev = q.device
     if dev.type != "cuda":
         raise ValueError("attention kernels take CUDA tensors")
@@ -112,13 +118,9 @@ def _check(q, k_new, v_new, cache: KVCache, slot_ids, starts, n_valid, dt,
     if cache.kind not in _KINDS:
         raise ValueError(f"attention kernels: kv kind {cache.kind!r}")
     _, want = _KINDS[cache.kind]
-    L, S, KH = cache.k.shape[:3]
     T = cache.max_len
     Dk = D // 2 if cache.kind == "q4_0" else D
     plane = (L, S, KH, Dk, T) if dt else (L, S, KH, T, Dk)
-    if D > 128 or D % 2 or H % KH or H // KH > 64:
-        raise ValueError(f"attention kernels: unsupported heads/head_dim "
-                         f"H={H} KH={KH} D={D}")
     planes = [cache.k, cache.v]
     for p in planes:
         if p.dtype != want or tuple(p.shape) != plane:
@@ -160,9 +162,9 @@ def attn_kernel(name: str, q, k_new, v_new, cache: KVCache, li: int,
                 slot_ids, starts, n_valid, window: int, scale: float,
                 softcap: float, tables=None) -> torch.Tensor:
     """Launch attention kernel `name` (a key of LAUNCHES): attn_decode* /
-    attn_prefill* on a "td" cache, *_dt* on a "dt" cache (decode: Tc = 1
-    and at most 8 query heads per kv head); the *_rope kernels take K
-    stored unrotated and tables = rope_tables(...). q [B, Tc, H, D] f32,
+    attn_prefill* on a "td" cache, *_dt* on a "dt" cache (decode: Tc = 1),
+    at any even head_dim up to 256 and any query-group size; the *_rope
+    kernels take K stored unrotated and tables = rope_tables(...). q [B, Tc, H, D] f32,
     k/v_new [B, KH, Tc, D] f32 (K rotated), slot_ids/starts/n_valid [B]
     int32; returns a new [B, Tc, H, D] f32."""
     if name not in _LIBS:
@@ -172,9 +174,8 @@ def attn_kernel(name: str, q, k_new, v_new, cache: KVCache, li: int,
                          "and only with them")
     B, Tc, H, D, S, KH, T = _check(q, k_new, v_new, cache, slot_ids, starts,
                                    n_valid, "_dt" in name, tables)
-    if name.startswith("attn_decode") and (Tc != 1 or H // KH > 8):
-        raise ValueError(f"{name} takes Tc == 1 and at most 8 query heads "
-                         "per kv head")
+    if name.startswith("attn_decode") and Tc != 1:
+        raise ValueError(f"{name} takes Tc == 1")
     out = torch.empty_like(q)
     P = _build.ptr
     ks = P(cache.k_scale) if cache.quantized else None

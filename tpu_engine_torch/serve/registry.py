@@ -1,12 +1,15 @@
 """Multi-model engine registry — the LlamaEngine analog (PyTorch port).
 
 Options the port does not carry yet (mmproj, embedding/non-causal
-models, tensor_parallel or data_parallel > 1) are refused at /loadmodel
-with a "not yet supported by tpu_engine_torch" error, never served
-another way. cache_type f16, q8_0 and q4_0 are served; an unknown type
-warns and falls back to f16, as the reference does. grp_attn_n > 1
-(self-extend) is served: K is then stored unrotated and the attention
-kernels rotate it by the remapped cell positions.
+models, a device grid whose tensor_parallel or data_parallel is above 1)
+are refused at /loadmodel with a "not yet supported by tpu_engine_torch"
+error, never served another way. tensor_parallel "auto" resolves to the
+attached devices over data_parallel, as in the JAX package: on one card
+(or the CPU) that is 1, served unsharded. cache_type f16, q8_0 and q4_0
+are served; an unknown type warns and falls back to f16, as the
+reference does. grp_attn_n > 1 (self-extend) is served: K is then stored
+unrotated and the attention kernels rotate it by the remapped cell
+positions.
 
 Rebuilds the reference's model lifecycle (SURVEY.md section 2a "LlamaEngine";
 reference src/llama_engine.cc): /loadmodel JSON -> engine options
@@ -21,6 +24,8 @@ import logging
 import os
 import threading
 import time
+
+import torch
 
 from ..api.openai import ModelPrompts
 from ..model.loader import LoadedModel, load_model
@@ -112,9 +117,21 @@ class EngineRegistry:
             return _unsupported("mmproj (multimodal)")
         if str(body.get("model_type", "llm")) == "embedding":
             return _unsupported("model_type 'embedding'")
-        if (str(body.get("tensor_parallel", 1)) != "1"
-                or int(body.get("data_parallel", 1)) != 1):
-            return _unsupported("tensor_parallel/data_parallel > 1")
+        # the device grid, resolved as the JAX package resolves it: "auto"
+        # takes every attached device not used for data parallelism
+        tp_req = body.get("tensor_parallel", 1)
+        dp_size = int(body.get("data_parallel", 1))
+        n_dev = (torch.cuda.device_count() if self.device.startswith("cuda")
+                 else 1)
+        tp_size = (n_dev // max(dp_size, 1) if str(tp_req) == "auto"
+                   else int(tp_req))
+        if tp_size < 1 or dp_size < 1:
+            return False, (f"tensor_parallel={tp_size} x data_parallel="
+                           f"{dp_size} is not a valid grid for {n_dev} "
+                           f"attached devices")
+        if tp_size > 1 or dp_size > 1:
+            return _unsupported(f"tensor_parallel={tp_size} x data_parallel="
+                                f"{dp_size} (tensor_parallel/data_parallel > 1)")
         # the CUDA kernels (kernels/dequant_matmul.py, flash_attention.py)
         # are the model's default path: they launch on CUDA tensors; the
         # plain PyTorch versions run only on CPU tensors

@@ -1,34 +1,43 @@
-"""A/B of the attention kernels' score-loop unrolling on the card.
+"""A/B of the attention kernels on the card.
 
-    python -m tpu_engine_torch.tools.attn_ab      # needs one CUDA card
+    python -m tpu_engine_torch.tools.attn_ab                # needs one CUDA card
+    python -m tpu_engine_torch.tools.attn_ab --against DIR  # DIR: another csrc/
 
-Builds csrc/attn.cu three times with the score loops' ``#pragma unroll 8``
-(attn_common.cuh) replaced: removed (the compiler's own choice), 4, and 8
-as shipped. Times attn_decode and attn_prefill of each build on f16 "td"
-caches at chip_smoke.py's shapes (Llama-2-7B heads: KH=32, D=128), the
-builds in turns and the order reversed on a second pass, each launch the
-median of 20 after a 256 MB L2 flush, and holds every output against
-attention_reference. Prints one line per pass and shape.
+Without options: builds csrc/attn.cu three times with the score loops'
+``#pragma unroll 8`` (attn_common.cuh) replaced: removed (the compiler's
+own choice), 4, and 8 as shipped, and times attn_decode and attn_prefill
+on f16 "td" caches. With --against: builds the four attention sources
+(attn.cu, attn_dt.cu, attn_rope.cu, attn_dt_rope.cu) as shipped and as
+they are in DIR (the csrc/ of another checkout, e.g. the parent commit
+unpacked with git archive; their C interface must be this one's), and
+times every kernel at chip_smoke.py's main shapes: decode B=8 fills
+1..511, prefill B=1 Tc=512 history 0, f16 "td" and q8_0/q4_0 "dt", K
+stored rotated and unrotated. Shapes are Llama-2-7B heads (KH=32, G=1,
+D=128). The builds run in turns and the order reversed on a second pass,
+each time the median of 20 launches (tools/timing.py), and every output
+is held against attention_reference. Prints one line per pass and case.
 """
 
 from __future__ import annotations
 
 import ctypes
-import math
 import os
 import shutil
 import subprocess
-import types
+import sys
 
 import torch
 
 from ..kernels import _build
 from ..kernels import flash_attention as FA
-from ..kvcache.cache import KVCache
+from ..kvcache.cache import QUANT_KINDS, KVCache, quantize_kv_rows
+from ..model.config import ModelConfig
 from ..model.llama import attention_reference
+from .timing import Timer
 
 UNROLL = "#pragma unroll 8\n"
 VARIANTS = {"compiler": "", "unroll4": "#pragma unroll 4\n", "unroll8": UNROLL}
+LIBS = ("attn", "attn_dt", "attn_rope", "attn_dt_rope")
 FILLS = [1, 511, 37, 256, 128, 400, 2, 300]
 CASES = {  # name: (B, T, starts, Tc, n_valid)
     "decode B=8 fills 1..511": (8, 512, FILLS, 1, [1] * 8),
@@ -37,96 +46,124 @@ CASES = {  # name: (B, T, starts, Tc, n_valid)
     "prefill B=8 Tc=256 grouped": (8, 512, [0, 0, 130, 0, 256, 17, 0, 200],
                                    256, [256, 24, 0, 0, 150, 0, 256, 0]),
 }
+AGAINST_CASES = [  # (case, kind, layout)
+    (case, kind, layout) for case in list(CASES)[:2]
+    for kind, layout in (("f16", "td"), ("q8_0", "dt"), ("q4_0", "dt"))]
 
 
-def build_variants() -> dict[str, ctypes.CDLL]:
-    src = open(os.path.join(_build.CSRC, "attn_common.cuh")).read()
-    if src.count(UNROLL) != 2:
-        raise RuntimeError("attn_common.cuh: expected two score-loop pragmas")
-    procs = {}
-    for name, pragma in VARIANTS.items():
+def build(trees: dict[str, tuple[str, str]], libs) -> dict[str, dict]:
+    """trees: name -> (directory of the .cu sources, attn_common.cuh
+    text); builds each of libs there, in parallel."""
+    procs = []
+    for name, (src_dir, common) in trees.items():
         d = os.path.join(_build.BUILD_ROOT, "attn_ab", name)
         shutil.rmtree(d, ignore_errors=True)
         os.makedirs(d)
         with open(os.path.join(d, "attn_common.cuh"), "w") as fh:
-            fh.write(src.replace(UNROLL, pragma))
-        shutil.copy(os.path.join(_build.CSRC, "attn.cu"), d)
-        procs[name] = (d, subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", d, "-o",
-             os.path.join(d, "attn.so"), os.path.join(d, "attn.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
-    libs = {}
-    for name, (d, p) in procs.items():
+            fh.write(common)
+        for lib in libs:
+            shutil.copy(os.path.join(src_dir, lib + ".cu"), d)
+            procs.append((name, lib, d, subprocess.Popen(
+                [_build._nvcc(), *_build.NVCC_FLAGS, "-I", d, "-o",
+                 os.path.join(d, lib + ".so"), os.path.join(d, lib + ".cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+    out: dict[str, dict] = {name: {} for name in trees}
+    for name, lib, d, p in procs:
         log, _ = p.communicate()
         if p.returncode != 0:
-            raise RuntimeError(f"nvcc {name}:\n{log.decode(errors='replace')}")
-        regs = sorted({ln.split("Used ")[1].split(",")[0]
-                       for ln in log.decode().splitlines() if "Used " in ln})
-        print(f"{name}: {regs}", flush=True)
-        libs[name] = ctypes.CDLL(os.path.join(d, "attn.so"))
-    return libs
+            raise RuntimeError(f"nvcc {name} {lib}:\n{log.decode(errors='replace')}")
+        out[name][lib] = ctypes.CDLL(os.path.join(d, lib + ".so"))
+    return out
 
 
-def median_ms(fn, flush, iters=20) -> float:
+def make_case(gen, B, T, starts, Tc, n_valid, kind, layout, KH=32, D=128):
+    dev = "cuda"
+    planes, scales = [], []
     for _ in range(2):
-        fn()
-    ev = [(torch.cuda.Event(enable_timing=True),
-           torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
-    for e0, e1 in ev:
-        flush.zero_()
-        e0.record()
-        fn()
-        e1.record()
-    torch.cuda.synchronize()
-    return sorted(e0.elapsed_time(e1) for e0, e1 in ev)[iters // 2]
+        x = torch.randn((1, B, KH, T, D), generator=gen, device=dev)
+        if kind in QUANT_KINDS:
+            x, s = quantize_kv_rows(x, kind)
+            scales.append(s)
+        else:
+            x = x.to(torch.bfloat16)
+        planes.append(x.transpose(-1, -2).contiguous() if layout == "dt" else x)
+    st = torch.tensor(starts, dtype=torch.int32, device=dev)
+    cache = KVCache(planes[0], planes[1], st.clone(), *(scales or (None, None)),
+                    kind=kind, layout=layout)
+    q = torch.randn((B, Tc, KH, D), generator=gen, device=dev)
+    kn, vn = (torch.randn((B, KH, Tc, D), generator=gen, device=dev)
+              for _ in range(2))
+    return (q, cache, torch.arange(B, dtype=torch.int32, device=dev),
+            st[:, None] + torch.arange(Tc, dtype=torch.int32, device=dev)[None],
+            torch.tensor(n_valid, dtype=torch.int32, device=dev), kn, vn)
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         raise SystemExit("attn_ab: no CUDA device")
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
-    libs = build_variants()
-    dev, KH, D = "cuda", 32, 128
-    gen = torch.Generator(device=dev)
+    common = open(os.path.join(_build.CSRC, "attn_common.cuh")).read()
+    if argv[:1] == ["--against"]:
+        other = argv[1]
+        with open(os.path.join(other, "attn_common.cuh")) as fh:
+            trees = {"shipped": (_build.CSRC, common), "other": (other, fh.read())}
+        libs, cases, ropes = LIBS, AGAINST_CASES, (False, True)
+    else:
+        if common.count(UNROLL) != 2:
+            raise RuntimeError("attn_common.cuh: expected two score-loop pragmas")
+        trees = {name: (_build.CSRC, common.replace(UNROLL, pragma))
+                 for name, pragma in VARIANTS.items()}
+        libs, cases, ropes = ("attn",), [(c, "f16", "td") for c in CASES], (False,)
+    built = build(trees, libs)
+    gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
-    cfg = types.SimpleNamespace(attention_scale=lambda: 1.0 / math.sqrt(D),
-                                attn_logit_softcap=0.0,
-                                layer_window=lambda li: 0, rope_dim=D)
-    for order in (list(libs), list(libs)[::-1]):
-        for cname, (B, T, starts, Tc, n_valid) in CASES.items():
-            planes = [torch.randn((1, B, KH, T, D), generator=gen, device=dev)
-                      .to(torch.bfloat16) for _ in range(2)]
-            st = torch.tensor(starts, dtype=torch.int32, device=dev)
-            cache = KVCache(planes[0], planes[1], st.clone(), kind="f16")
-            slots = torch.arange(B, dtype=torch.int32, device=dev)
-            nv = torch.tensor(n_valid, dtype=torch.int32, device=dev)
-            q = torch.randn((B, Tc, KH, D), generator=gen, device=dev)
-            kn, vn = (torch.randn((B, KH, Tc, D), generator=gen, device=dev)
-                      for _ in range(2))
-            q_pos = st[:, None] + torch.arange(Tc, dtype=torch.int32,
-                                               device=dev)[None]
-            ref = attention_reference(q, cache, 0, slots, q_pos, nv, kn, vn,
-                                      cfg, rot_cache=True)
-            live = (nv > 0) | (st > 0)
-            kname = "attn_decode" if Tc == 1 else "attn_prefill"
-            out = []
-            for name in order:
-                _build._libs["attn"] = libs[name]  # FA's launcher loads it
+    timer = Timer(20)
+    cfg = attn_cfg(128)
+    for order in (list(built), list(built)[::-1]):
+        for cname, kind, layout in cases:
+            args = make_case(gen, *CASES[cname], kind, layout)
+            q, cache, slots, q_pos, nv, kn, vn = args
+            live = (nv > 0) | (q_pos[:, 0] > 0)
+            for rope in ropes:
+                tables = (FA.cache_rope_tables(cache, cfg, 4, 128)
+                          if rope else None)
+                ref = attention_reference(
+                    q, cache, 0, slots, q_pos, nv, kn, vn, cfg,
+                    *((4, 128) if rope else (1, 0)), rot_cache=not rope)
+                kname = ("attn_decode" if q.shape[1] == 1 else "attn_prefill"
+                         ) + ("_dt" if layout == "dt" else "") + (
+                             "_rope" if rope else "")
+                out = []
+                for name in order:
+                    for lib, cdll in built[name].items():
+                        _build._libs[lib] = cdll  # FA's launchers load it
 
-                def run():
-                    return FA.attn_kernel(kname, q, kn, vn, cache, 0, slots,
-                                          st, nv, 0, cfg.attention_scale(), 0.0)
+                    def run():
+                        return FA.attn_kernel(
+                            kname, q, kn, vn, cache, 0, slots, q_pos[:, 0].contiguous(),
+                            nv, 0, cfg.attention_scale(), 0.0, tables=tables)
 
-                err = float((run()[live] - ref[live]).abs().max())
-                if err > 2e-4:
-                    raise AssertionError(f"{name} {cname}: max abs err {err}")
-                out.append(f"{name} {median_ms(run, flush):.4f} ms")
-            print(f"{cname}: {' | '.join(out)}", flush=True)
-    _build._libs.pop("attn", None)
+                    err = float((run()[live] - ref[live]).abs().max())
+                    if err > 2e-4:
+                        raise AssertionError(f"{name} {kname} {cname}: max abs err {err}")
+                    out.append(f"{name} {timer(run):.4f} ms")
+                print(f"{kname} {kind} {layout} {cname}: {' | '.join(out)}",
+                      flush=True)
+    for lib in libs:
+        _build._libs.pop(lib, None)
     return 0
+
+
+def attn_cfg(D):
+    """Attention's part of a Llama config at head_dim D (as chip_smoke.py's
+    attn_cfg): 1/sqrt(D) scale, split-half rope over D, theta 10000."""
+    return ModelConfig(
+        arch="llama", n_layer=1, n_embd=32 * D, n_head=32, n_kv_head=32,
+        head_dim=D, n_ff=4 * D, n_vocab=32, n_ctx_train=4096, rms_eps=1e-5,
+        rope_theta=10000.0, rope_dim=D, rope_type="neox")
 
 
 if __name__ == "__main__":
