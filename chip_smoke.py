@@ -7,7 +7,9 @@ holds each against its plain PyTorch version (qmm_nib4 against its twin
 qmm_nib4_plain, which rounds to bf16 as it does) at the shapes the
 serving path gives it and times it (tools/timing.py), at every weight
 layout of the qmm kernels and, for attention, K stored pre-rotated and
-unrotated (self-extend), head_dim 64-256 and query groups of 1-72. Then
+unrotated (self-extend), head_dim 64-256 and query groups of 1-72, and
+the decode kernels at the edges of their cell splits (also against
+decode_split_plain) and twice on the same inputs (equal bits). Then
 runs a Llama-2-7B-width Q4_K_M model (depth cut to 4 layers, random
 weights from a seed) once through every kernel against each kernel's
 twin, and at f16, q8_0 and q4_0 KV and with self-extend at f16 and q4_0
@@ -290,6 +292,7 @@ def sdpa_inputs(c, Tc, cfg=None, ga=None):
 
 
 FILLS = [1, 511, 37, 256, 128, 400, 2, 300]  # decode fills, mixed 1..511
+FILLS_2K = [4, 2047, 148, 1024, 512, 1600, 8, 1200]  # mixed 4..2047
 
 
 def attn_cases(D=128):
@@ -352,6 +355,12 @@ def attn_cases(D=128):
         add("attn_prefill" + sfx, "B=1 Tc=512 history 0 KH=8 G=2 D=256",
             B=1, T=1024, starts=[0], Tc=512, n_valid=[512], kind=kind,
             layout=layout, **wide)
+    # BASELINE config 3's long fill (q8_0 KV decode at fills to ~2k): T=2048
+    for kname, kind, layout in (("attn_decode", "f16", "td"),
+                                ("attn_decode_dt", "q8_0", "dt")):
+        add(kname, f"B=8 KH=32 G=1 D={D} T=2048 fills 4..2047", B=8, KH=32,
+            G=1, D=D, T=2048, starts=FILLS_2K, Tc=1, n_valid=[1] * 8,
+            kind=kind, layout=layout)
     # 16 query heads per kv head: one timed shape for the "td" pair
     g16 = dict(KH=2, G=16, D=D, kind="f16")
     add("attn_decode", f"B=8 KH=2 G=16 D={D} T=512 fills 1..511", B=8, T=512,
@@ -421,6 +430,59 @@ def attn_check(gen, kname, kw, win=0, cap=0.0, ga=ATTN_GA, rope_dim=None):
     return c, args, mode, err, rel
 
 
+def split_checks(gen) -> None:
+    """The decode kernels at the edges of their splits of FA.DEC_SPLIT
+    cells, in every kind and layout, K rotated and not: fills 0, 1, C - 1,
+    C, C + 1 and T - 1, a window whose start falls mid-split and one that
+    leaves whole splits below it; each held to attention_reference (by
+    attn_check) and to decode_split_plain at the kernel's split, within
+    ATTN_TOL."""
+    C, T = FA.DEC_SPLIT, 256
+    for kind in ("f32", "f16", "q8_0", "q4_0"):
+        for layout in ("td", "dt"):
+            for win, starts in ((0, [0, 1, C - 1, C, C + 1, T - 1]),
+                                (30, [150, T - 1, 40, 17])):
+                for rope in ("", "_rope"):
+                    kname = "attn_decode" + ("_dt" if layout == "dt" else "") + rope
+                    kw = dict(B=len(starts), KH=4, G=2, D=128, T=T,
+                              starts=starts, Tc=1, n_valid=[1] * len(starts),
+                              kind=kind, layout=layout)
+                    c, args, mode, err, _ = attn_check(gen, kname, kw, win)
+                    y = FA.flash_attention(*args, **mode)
+                    cfg, cache = args[8], c["cache"]
+                    tables = (FA.cache_rope_tables(cache, cfg, *ATTN_GA)
+                              if rope else None)
+                    sp = FA.decode_split_plain(
+                        c["q"], cache, c["li"], c["slot_ids"], c["starts"],
+                        c["k_new"], c["v_new"], win, cfg.attention_scale(),
+                        0.0, tables=tables)
+                    err_sp = float((y - sp).abs().max())
+                    log(f"{kname} split check C={C} window={win} starts="
+                        f"{starts} {kind} {layout}: max_abs_err {err:.3e} "
+                        f"(attention_reference), {err_sp:.3e} "
+                        f"(decode_split_plain) (tol {ATTN_TOL} abs)")
+                    if not err_sp <= ATTN_TOL:
+                        raise AssertionError(f"{kname} {kw} window={win}: "
+                                             f"decode_split_plain {err_sp:.3e}")
+
+
+def repeat_checks(gen) -> None:
+    """Two launches of each decode kernel on the same inputs (the main
+    decode shape) give the same bits: the splits merge in a fixed order."""
+    for kname, kind, layout in (("attn_decode", "f16", "td"),
+                                ("attn_decode_dt", "q8_0", "dt")):
+        for rope in ("", "_rope"):
+            kw = dict(B=8, KH=32, G=1, D=128, T=512, starts=FILLS, Tc=1,
+                      n_valid=[1] * 8, kind=kind, layout=layout)
+            *_, args, mode, _, _ = attn_check(gen, kname + rope, kw)
+            y0 = FA.flash_attention(*args, **mode)
+            y1 = FA.flash_attention(*args, **mode)
+            same = bool(torch.equal(y0, y1))
+            log(f"{kname + rope} repeat {kind} {layout}: equal bits {same}")
+            if not same:
+                raise AssertionError(f"{kname + rope}: two launches differ")
+
+
 def attn_phase(timer: Timer, gen) -> list[dict]:
     rows = []
     D = 128
@@ -464,6 +526,8 @@ def attn_phase(timer: Timer, gen) -> list[dict]:
             f"KH={kw['KH']} G={kw['G']} D={kw['D']} "
             f"{kw.get('kind', 'f16')} {kw.get('layout', 'td')} {opts}: "
             f"max_abs_err {err:.3e} rel {rel:.3e} (tol {ATTN_TOL} abs)")
+    split_checks(gen)
+    repeat_checks(gen)
     for kname, shape, kw, main in attn_cases(D):
         c, args, mode, err, rel = attn_check(gen, kname, kw)
         Tc = kw["Tc"]

@@ -91,12 +91,10 @@ def _caches(kind, layout, k, v, lengths):
     return jc, tc
 
 
-def run_case(kind, seed, B, Tc, T, starts, cfg, slot_perm=None, n_valid=None,
-             layout="td", ga=(1, 0), rot_cache=True):
-    """Outputs of the JAX reference, the JAX Pallas kernel (interpret
-    mode), the port's plain version and the port's flash_attention on the
-    same inputs; ga = (ga_n, ga_w) of the self-extend remap, applied to
-    cached K when rot_cache is False."""
+def make_inputs(kind, seed, B, Tc, T, starts, cfg, slot_perm=None,
+                n_valid=None, layout="td", ga=(1, 0)):
+    """The same operands for both packages: (JAX args, port args, n_valid)
+    in attention_reference's order."""
     rng = np.random.default_rng(seed)
     H, KH, D = cfg.n_head, cfg.n_kv_head, cfg.head_dim
     q = rng.standard_normal((B, Tc, H, D)).astype(np.float32)
@@ -120,6 +118,17 @@ def run_case(kind, seed, B, Tc, T, starts, cfg, slot_perm=None, n_valid=None,
     targs = (torch.from_numpy(q), tc, 0, torch.from_numpy(slots),
              torch.from_numpy(q_pos), torch.from_numpy(nv),
              torch.from_numpy(kn), torch.from_numpy(vn), cfg, *ga)
+    return jargs, targs, nv
+
+
+def run_case(kind, seed, B, Tc, T, starts, cfg, slot_perm=None, n_valid=None,
+             layout="td", ga=(1, 0), rot_cache=True):
+    """Outputs of the JAX reference, the JAX Pallas kernel (interpret
+    mode), the port's plain version and the port's flash_attention on the
+    same inputs; ga = (ga_n, ga_w) of the self-extend remap, applied to
+    cached K when rot_cache is False."""
+    jargs, targs, nv = make_inputs(kind, seed, B, Tc, T, starts, cfg,
+                                   slot_perm, n_valid, layout, ga)
     jr = np.asarray(j_ref(*jargs, rot_cache=rot_cache))
     jp = np.asarray(JFA.flash_attention(*jargs, rot_cache=rot_cache))
     tr = t_ref(*targs, rot_cache=rot_cache).numpy()
@@ -253,3 +262,71 @@ def test_kernel_check_head_limits(H, KH, D, ok):
         TFA._check(torch.zeros((B, Tc, H, D)), torch.zeros((B, KH, Tc, D)),
                    torch.zeros((B, KH, Tc, D)), cache, ints, ints, ints,
                    False, None)
+
+
+# ------------------------------------------------- the decode kernels' splits
+# decode_split_plain (the split arithmetic of attn_common.cuh's decode
+# kernels) at a split of 16 cells, against the JAX reference: starts at the
+# split edges (0, 1, C - 1, C, C + 1, T - 1), a window whose start falls
+# mid-split and one that leaves whole splits below it, softcap, head_dim
+# 256 and a query group past one block's chunk (DEC_MAXG = 8)
+SPLIT = 16
+SPLIT_T = 192
+SPLIT_CASES = {
+    # name: (starts, cfg kwargs)
+    "edges": ([0, 1, SPLIT - 1, SPLIT, SPLIT + 1, SPLIT_T - 1], {}),
+    "window": ([100, 191, 40, 17], dict(window=30)),
+}
+SPLIT_EXTRA = {
+    # name: (kind, layout, starts, cfg kwargs)
+    "softcap_f16_td": ("f16", "td", [3, 150], dict(softcap=30.0)),
+    "softcap_q8_0_dt": ("q8_0", "dt", [3, 150], dict(softcap=30.0)),
+    "d256_f16_td": ("f16", "td", [0, 70, 191], dict(D=256)),
+    "d256_q4_0_dt": ("q4_0", "dt", [0, 70, 191], dict(D=256)),
+    "g12_f16_td": ("f16", "td", [16, 90], dict(H=24, KH=2)),
+    "g12_q4_0_dt": ("q4_0", "dt", [16, 90], dict(H=24, KH=2)),
+}
+
+
+def check_split(kind, layout, seed, starts, ckw, ga=(1, 0), rot_cache=True):
+    """decode_split_plain at SPLIT against the JAX attention_reference,
+    2e-5 (both f32; only the order of sums differs)."""
+    cfg = mk_cfg(**ckw)
+    B = len(starts)
+    jargs, targs, _ = make_inputs(kind, seed, B, 1, SPLIT_T, starts, cfg,
+                                  layout=layout, ga=ga)
+    jr = np.asarray(j_ref(*jargs, rot_cache=rot_cache))
+    q, cache, li, slots, q_pos, _, kn, vn = targs[:8]
+    tables = None if rot_cache else TFA.rope_tables(cfg, SPLIT_T, *ga, "cpu")
+    out = TFA.decode_split_plain(
+        q, cache, li, slots, q_pos[:, 0], kn, vn, cfg.layer_window(li),
+        cfg.attention_scale(), float(cfg.attn_logit_softcap), tables=tables,
+        split=SPLIT).numpy()
+    np.testing.assert_allclose(out, jr, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("layout", ["td", "dt"])
+@pytest.mark.parametrize("kind", ["f32", "f16", "q8_0", "q4_0"])
+@pytest.mark.parametrize("case", list(SPLIT_CASES))
+def test_decode_splits_match_jax(case, kind, layout):
+    check_split(kind, layout, 800 + list(SPLIT_CASES).index(case),
+                *SPLIT_CASES[case])
+
+
+@pytest.mark.parametrize("case", list(SPLIT_EXTRA))
+def test_decode_splits_heads_softcap_match_jax(case):
+    check_split(*SPLIT_EXTRA[case][:2], 820 + list(SPLIT_EXTRA).index(case),
+                *SPLIT_EXTRA[case][2:])
+
+
+def test_decode_split_matches_kernel_constant():
+    """DEC_SPLIT, which sizes the decode workspace, is attn_common.cuh's."""
+    import os
+    import re
+
+    path = os.path.join(os.path.dirname(TFA.__file__), os.pardir, "csrc",
+                        "attn_common.cuh")
+    with open(path) as fh:
+        (c,) = re.findall(r"constexpr int DEC_SPLIT = (\d+);", fh.read())
+    assert int(c) == TFA.DEC_SPLIT
+    assert TFA.decode_splits(512) == 512 // int(c) + 1

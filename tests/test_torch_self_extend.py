@@ -27,7 +27,9 @@ import numpy as np
 import pytest
 import torch
 
-from tests.test_torch_attention import CASES, DT_CASES, mk_cfg, run_case
+from tests.test_torch_attention import (CASES, DT_CASES, SPLIT_CASES,
+                                        SPLIT_EXTRA, check_split, mk_cfg,
+                                        run_case)
 from tpu_engine.kernels import flash_attention as JFA
 from tpu_engine_torch.kernels import flash_attention as TFA
 from tpu_engine_torch.kvcache.cache import KVCache as TKV
@@ -94,6 +96,25 @@ def test_partial_rope_dim_matches_jax(case, layout, kind):
 def test_ga_n_1_matches_jax(case, layout):
     """ga_n = 1: unrotated K rotated by its plain cell index."""
     check("f16", layout, 700, *CASES[case], ga=(1, 0))
+
+
+# decode_split_plain with K stored unrotated: the split cases of
+# test_torch_attention.py at ga_n 4, ga_w 128 (cells past 128 remapped)
+SPLIT_GA = (4, 128)
+
+
+@pytest.mark.parametrize("layout", ["td", "dt"])
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("case", list(SPLIT_CASES))
+def test_decode_splits_self_extend_match_jax(case, kind, layout):
+    check_split(kind, layout, 900 + list(SPLIT_CASES).index(case),
+                *SPLIT_CASES[case], ga=SPLIT_GA, rot_cache=False)
+
+
+@pytest.mark.parametrize("case", list(SPLIT_EXTRA))
+def test_decode_splits_self_extend_heads_softcap_match_jax(case):
+    check_split(*SPLIT_EXTRA[case][:2], 920 + list(SPLIT_EXTRA).index(case),
+                *SPLIT_EXTRA[case][2:], ga=SPLIT_GA, rot_cache=False)
 
 
 # ----------------------------------------------------------------- routing

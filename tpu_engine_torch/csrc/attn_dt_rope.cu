@@ -1,8 +1,10 @@
 // Flash attention over the transposed "dt" KV cache [L, S, KH, Dk, T] with
-// K stored unrotated (self-extend, grp_attn_n > 1): the tile loader
-// rotates each cached K cell by the cos/sin tables of its cell, the
-// self-extend remap baked in; f32, bf16, q8_0 or q4_0 cells. The kernels
-// and their design are in attn_common.cuh (ROT = true).
+// K stored unrotated (self-extend, grp_attn_n > 1): each cached K cell is
+// rotated by the cos/sin tables of its cell, the self-extend remap baked
+// in, as the score loop reads it (decode, tables [rd/2, T]) or as the
+// tile loader fills the tile (prefill, tables [T, rd/2]); f32, bf16, q8_0
+// or q4_0 cells. The kernels and their design are in attn_common.cuh
+// (ROT = true).
 //
 // attn_decode_dt_rope replaces tpu_engine/kernels/flash_attention.py:
 // _decode_kernel_t (Tc = 1, rotated=False: the JAX package sends every

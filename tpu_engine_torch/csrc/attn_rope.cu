@@ -1,7 +1,8 @@
 // Flash attention over the "td" KV cache [L, S, KH, T, Dk] with K stored
-// unrotated (self-extend, grp_attn_n > 1): the tile loader rotates each
-// cached K cell by the cos/sin tables of its cell, the self-extend remap
-// baked in; f32, bf16, q8_0 or q4_0 cells. The kernels and their design
+// unrotated (self-extend, grp_attn_n > 1): each cached K cell is rotated
+// by the cos/sin tables of its cell, the self-extend remap baked in, as
+// the score loop reads it (decode) or as the tile loader fills the tile
+// (prefill); f32, bf16, q8_0 or q4_0 cells. The kernels and their design
 // are in attn_common.cuh (ROT = true).
 //
 // attn_decode_rope replaces tpu_engine/kernels/flash_attention.py:

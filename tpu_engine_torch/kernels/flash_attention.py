@@ -20,7 +20,10 @@ softcap. The rope kernels rotate each cached K cell p by cos/sin tables
 the cache keeps from their first use (KVCache.rope_tables).
 Scores, softmax and the PV sum are f32 (the TPU decode kernels on
 pre-rotated K feed bf16 operands to their dots; the plain version and
-these kernels stay f32).
+these kernels stay f32). The decode kernels split each row's cells into
+splits of DEC_SPLIT, one block each, and merge the splits in a second
+pass over a workspace the wrapper allocates; decode_split_plain is that
+arithmetic in plain PyTorch, for the tests and chip_smoke.py.
 
 flash_attention() has model.llama.attention_reference's signature and is
 the attention the model calls: on CUDA tensors it launches a kernel (or
@@ -35,7 +38,8 @@ import torch
 
 from ..kvcache.cache import KVCache
 from ..model.config import ModelConfig
-from ..model.llama import attention_reference, rope_cos_sin, self_extend_pos
+from ..model.llama import (NEG_INF, attention_reference, rope_cos_sin,
+                           self_extend_pos)
 from . import _build
 
 # kernel -> the library (csrc/<name>.cu) that holds it
@@ -48,6 +52,9 @@ _LIBS = {"attn_decode": "attn", "attn_prefill": "attn",
 # launches per kernel, bumped only where a kernel is launched
 LAUNCHES = dict.fromkeys(_LIBS, 0)
 
+# cache cells per decode split: attn_common.cuh's DEC_SPLIT
+DEC_SPLIT = 64
+
 # cell kind -> (attn::Kind of attn_common.cuh, stored dtype)
 _KINDS = {"f32": (0, torch.float32), "f16": (1, torch.bfloat16),
           "q8_0": (2, torch.int8), "q4_0": (3, torch.uint8)}
@@ -55,14 +62,14 @@ _KINDS = {"f32": (0, torch.float32), "f16": (1, torch.bfloat16),
 
 def _fn(name: str):
     """The launcher `name` (attn_common.cuh's ATTN_ENTRY: 7 pointers, kind,
-    4 pointers, 9 ints, scale, softcap, cos_t, sin_t, rd, stream)."""
+    4 pointers, 9 ints, scale, softcap, cos_t, sin_t, rd, ws, stream)."""
     f = getattr(_build.load(_LIBS[name]), name)
     if f.argtypes is None:
         f.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int]
                       + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
                       + [ctypes.c_float, ctypes.c_float]
                       + [ctypes.c_void_p] * 2 + [ctypes.c_int]
-                      + [ctypes.c_void_p])
+                      + [ctypes.c_void_p] * 2)
         f.restype = ctypes.c_int
     return f
 
@@ -97,6 +104,20 @@ def cache_rope_tables(cache: KVCache, cfg: ModelConfig, ga_n, ga_w):
         tabs = cache.rope_tables[key] = rope_tables(
             cfg, cache.max_len, ga_n, ga_w, cache.k.device)
     return tabs
+
+
+def _by_pair(cache: KVCache, tables):
+    """tables [T, rd/2] as [rd/2, T], the form attn_decode_dt_rope reads
+    (runs of cells, as it reads the "dt" cache): kept on the cache beside
+    the tables of cache_rope_tables they come from, else made here."""
+    for key, val in list(cache.rope_tables.items()):
+        if val[0] is tables[0]:
+            pair_key = ("by_pair",) + key
+            if pair_key not in cache.rope_tables:
+                cache.rope_tables[pair_key] = tuple(t.t().contiguous()
+                                                    for t in tables)
+            return cache.rope_tables[pair_key]
+    return tuple(t.t().contiguous() for t in tables)
 
 
 def _check(q, k_new, v_new, cache: KVCache, slot_ids, starts, n_valid, dt,
@@ -166,7 +187,9 @@ def attn_kernel(name: str, q, k_new, v_new, cache: KVCache, li: int,
     at any even head_dim up to 256 and any query-group size; the *_rope
     kernels take K stored unrotated and tables = rope_tables(...). q [B, Tc, H, D] f32,
     k/v_new [B, KH, Tc, D] f32 (K rotated), slot_ids/starts/n_valid [B]
-    int32; returns a new [B, Tc, H, D] f32."""
+    int32; returns a new [B, Tc, H, D] f32. Decode takes a workspace of
+    (m, l, sum p v) per (row, query head, split of DEC_SPLIT cells), sized
+    from cache.max_len alone: no device value is read here."""
     if name not in _LIBS:
         raise ValueError(f"no attention kernel {name!r}")
     if name.endswith("_rope") != (tables is not None):
@@ -174,22 +197,114 @@ def attn_kernel(name: str, q, k_new, v_new, cache: KVCache, li: int,
                          "and only with them")
     B, Tc, H, D, S, KH, T = _check(q, k_new, v_new, cache, slot_ids, starts,
                                    n_valid, "_dt" in name, tables)
-    if name.startswith("attn_decode") and Tc != 1:
+    decode = name.startswith("attn_decode")
+    if decode and Tc != 1:
         raise ValueError(f"{name} takes Tc == 1")
     out = torch.empty_like(q)
+    ws = (torch.empty(B * H * decode_splits(T) * (D + 2), dtype=torch.float32,
+                      device=q.device) if decode else None)
     P = _build.ptr
     ks = P(cache.k_scale) if cache.quantized else None
     vs = P(cache.v_scale) if cache.quantized else None
-    cos, sin = (P(t) for t in tables) if tables else (None, None)
     rd = 2 * tables[0].shape[1] if tables else 0  # 0: nothing is rotated
+    if name == "attn_decode_dt_rope":
+        tables = _by_pair(cache, tables)
+    cos, sin = (P(t) for t in tables) if tables else (None, None)
     rc = _fn(name)(
         P(q), P(k_new), P(v_new), P(cache.k), P(cache.v), ks, vs,
         _KINDS[cache.kind][0], P(slot_ids), P(starts), P(n_valid), P(out),
         B, Tc, KH, H // KH, D, S, T, int(li), int(window), float(scale),
-        float(softcap), cos, sin, rd, _build.stream_ptr(q.device))
+        float(softcap), cos, sin, rd, None if ws is None else P(ws),
+        _build.stream_ptr(q.device))
     _build.check(rc, name)
     LAUNCHES[name] += 1
     return out
+
+
+def decode_splits(T: int) -> int:
+    """Splits of DEC_SPLIT cells over cells [0, T]: the history and the
+    in-flight cell at start <= T."""
+    return T // DEC_SPLIT + 1
+
+
+def _stored(cells: torch.Tensor, kind: str) -> torch.Tensor:
+    """Stored cells [..., Dk] as f32 [..., D] without their scale."""
+    if kind == "q4_0":
+        lo = (cells & 0xF).to(torch.int32) - 8
+        hi = (cells >> 4).to(torch.int32) - 8
+        return torch.cat([lo, hi], dim=-1).to(torch.float32)
+    return cells.to(torch.float32)
+
+
+def decode_split_plain(q, cache: KVCache, li: int, slot_ids, starts, k_new,
+                       v_new, window: int, scale: float, softcap: float,
+                       tables=None, split: int = DEC_SPLIT) -> torch.Tensor:
+    """The decode kernels' split arithmetic in plain PyTorch, for the tests
+    and chip_smoke.py: attention_reference's function at Tc = 1, computed
+    as the kernels compute it. Each split of `split` cells takes its own
+    softmax over its cells with -1e30 masks (below the window's start, at
+    or above the fill), the in-flight row folded into the split that holds
+    cell start; a cached cell scores ks (q . k_stored) (K rotated as
+    stored values by tables = rope_tables(...) when given), and p carries
+    vs into the sum over stored V. The splits that ran (each holds a valid
+    cell) merge by exp(m_s - max m); the others, all masked (m = -1e30,
+    l = their cell count), weigh 0. q [B, 1, H, D]; returns [B, 1, H, D]
+    f32."""
+    B, _, H, D = q.shape
+    KH = k_new.shape[1]
+    G = H // KH
+    T = cache.max_len
+    NS = T // split + 1
+    Tp = NS * split
+    dev = q.device
+    sl = slot_ids.long()
+    kc, vc = cache.k[li, sl], cache.v[li, sl]
+    if cache.layout == "dt":
+        kc, vc = kc.transpose(-1, -2), vc.transpose(-1, -2)
+    k, v = _stored(kc, cache.kind), _stored(vc, cache.kind)  # [B, KH, T, D]
+    if tables is not None:
+        cos, sin = tables
+        h = cos.shape[1]
+        x0, x1, rest = k[..., :h], k[..., h:2 * h], k[..., 2 * h:]
+        k = torch.cat([x0 * cos - x1 * sin, x0 * sin + x1 * cos, rest], -1)
+    qf = q[:, 0].reshape(B, KH, G, D).to(torch.float32)
+    raw = torch.einsum("bkgd,bktd->bkgt", qf, k)
+    raw_new = torch.einsum("bkgd,bkd->bkg", qf, k_new[:, :, 0].to(torch.float32))
+    vs = torch.ones((B, KH, T), dtype=torch.float32, device=dev)
+    if cache.quantized:
+        raw = raw * cache.k_scale[li, sl][:, :, None, :]
+        vs = cache.v_scale[li, sl].to(torch.float32)
+
+    def cap(x):
+        return torch.tanh(x / softcap) * softcap if softcap > 0 else x
+
+    pad = Tp - T
+    sc = torch.nn.functional.pad(cap(raw * scale), (0, pad), value=NEG_INF)
+    v = torch.nn.functional.pad(v, (0, 0, 0, pad))
+    vs = torch.nn.functional.pad(vs, (0, pad))
+    start = starts.long().clamp(max=T)
+    lo = (start - window + 1).clamp(min=0) if window > 0 else start * 0
+    cell = torch.arange(Tp, device=dev)
+    valid = (cell[None] < start[:, None]) & (cell[None] >= lo[:, None])
+    sc = torch.where(valid[:, None, None], sc, NEG_INF)
+    sc = sc.reshape(B, KH, G, NS, split)
+    ns = torch.arange(NS, device=dev)
+    holds = ns[None] == (start // split)[:, None]  # [B, NS]
+    s_new = torch.where(holds[:, None, None], cap(raw_new * scale)[..., None],
+                        NEG_INF)
+    sc = torch.cat([sc, s_new[..., None]], -1)  # [B, KH, G, NS, split + 1]
+    m = sc.amax(-1)
+    p = torch.exp(sc - m[..., None])
+    l = p.sum(-1)
+    pv = p[..., :split] * vs.reshape(B, KH, 1, NS, split)
+    acc = torch.einsum("bkgsc,bkscd->bkgsd", pv, v.reshape(B, KH, NS, split, D))
+    acc = acc + p[..., split:] * v_new[:, :, None, None, 0].to(torch.float32)
+    live = (ns[None] >= (lo // split)[:, None]) & (ns[None] <= (start // split)[:, None])
+    live = live[:, None, None]  # [B, 1, 1, NS]
+    m_max = torch.where(live, m, float("-inf")).amax(-1, keepdim=True)
+    w = torch.where(live, torch.exp(m - m_max), 0.0)
+    out = (w[..., None] * acc).sum(-2) / (w * l).sum(-1)[..., None]
+    return out.reshape(B, 1, H, D)
 
 
 def flash_attention(q, cache, li, slot_ids, q_pos, n_valid, k_new, v_new,

@@ -2,20 +2,29 @@
 
     python -m tpu_engine_torch.tools.attn_ab                # needs one CUDA card
     python -m tpu_engine_torch.tools.attn_ab --against DIR  # DIR: another csrc/
+    python -m tpu_engine_torch.tools.attn_ab --fills        # decode by fill
 
-Without options: builds csrc/attn.cu three times with the score loops'
-``#pragma unroll 8`` (attn_common.cuh) replaced: removed (the compiler's
-own choice), 4, and 8 as shipped, and times attn_decode and attn_prefill
-on f16 "td" caches. With --against: builds the four attention sources
+Without options: builds csrc/attn.cu three times with the prefill score
+loop's ``#pragma unroll 8`` (attn_common.cuh) replaced: removed (the
+compiler's own choice), 4, and 8 as shipped, and times attn_decode and
+attn_prefill on f16 "td" caches. With --against: builds the four attention sources
 (attn.cu, attn_dt.cu, attn_rope.cu, attn_dt_rope.cu) as shipped and as
 they are in DIR (the csrc/ of another checkout, e.g. the parent commit
-unpacked with git archive; their C interface must be this one's), and
-times every kernel at chip_smoke.py's main shapes: decode B=8 fills
-1..511, prefill B=1 Tc=512 history 0, f16 "td" and q8_0/q4_0 "dt", K
-stored rotated and unrotated. Shapes are Llama-2-7B heads (KH=32, G=1,
+unpacked with git archive; their C interface this one's or the one
+before the decode workspace), and
+times every kernel at chip_smoke.py's shapes: decode B=8 fills 1..511
+and fills 4..2047 at T=2048, prefill B=1 Tc=512 at history 0 and 256
+and the grouped B=8 Tc=256 step, f16 "td" and q8_0/q4_0 "dt", K stored
+rotated and unrotated. Shapes are Llama-2-7B heads (KH=32, G=1,
 D=128). The builds run in turns and the order reversed on a second pass,
 each time the median of 20 launches (tools/timing.py), and every output
-is held against attention_reference. Prints one line per pass and case.
+is held against attention_reference. A DIR whose C interface predates the
+decode workspace (no ``ws`` argument) is called through a shim that drops
+it, so a tree and its parent run in one process. With --fills: times
+attn_decode as shipped, f16 "td", B=8 KH=32 G=1 D=128 T=512, at uniform
+fills (every row at 31, 255 or 511 cells) and at the mixed FILLS, to show
+whether its time follows the longest row or the total of live cells.
+Prints one line per pass and case.
 """
 
 from __future__ import annotations
@@ -41,14 +50,51 @@ LIBS = ("attn", "attn_dt", "attn_rope", "attn_dt_rope")
 FILLS = [1, 511, 37, 256, 128, 400, 2, 300]
 CASES = {  # name: (B, T, starts, Tc, n_valid)
     "decode B=8 fills 1..511": (8, 512, FILLS, 1, [1] * 8),
+    "decode B=8 T=2048 fills 4..2047": (
+        8, 2048, [4, 2047, 148, 1024, 512, 1600, 8, 1200], 1, [1] * 8),
     "prefill B=1 Tc=512 history 0": (1, 1024, [0], 512, [512]),
     "prefill B=1 Tc=512 history 256": (1, 1024, [256], 512, [512]),
     "prefill B=8 Tc=256 grouped": (8, 512, [0, 0, 130, 0, 256, 17, 0, 200],
                                    256, [256, 24, 0, 0, 150, 0, 256, 0]),
 }
 AGAINST_CASES = [  # (case, kind, layout)
-    (case, kind, layout) for case in list(CASES)[:2]
+    (case, kind, layout) for case in CASES
     for kind, layout in (("f16", "td"), ("q8_0", "dt"), ("q4_0", "dt"))]
+FILL_CASES = {f"decode B=8 fills all {f}": (8, 512, [f] * 8, 1, [1] * 8)
+              for f in (31, 255, 511)}
+FILL_CASES["decode B=8 fills 1..511"] = CASES["decode B=8 fills 1..511"]
+
+
+WS_ARG = "void* ws"  # the decode workspace in ATTN_ENTRY's parameters
+
+
+def common_text() -> str:
+    with open(os.path.join(_build.CSRC, "attn_common.cuh")) as fh:
+        return fh.read()
+
+
+class _NoWorkspace:
+    """A library built from a tree whose ATTN_ENTRY has no workspace
+    argument: each entry point is called with the workspace (the argument
+    before the stream) dropped."""
+
+    def __init__(self, cdll):
+        self.cdll = cdll
+
+    def __getattr__(self, name):
+        f = getattr(self.cdll, name)
+        f.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int]
+                      + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+                      + [ctypes.c_float, ctypes.c_float]
+                      + [ctypes.c_void_p] * 2 + [ctypes.c_int]
+                      + [ctypes.c_void_p])
+        f.restype = ctypes.c_int
+
+        def call(*a):
+            return f(*a[:-2], a[-1])
+
+        call.argtypes = f.argtypes
+        return call
 
 
 def build(trees: dict[str, tuple[str, str]], libs) -> dict[str, dict]:
@@ -72,7 +118,9 @@ def build(trees: dict[str, tuple[str, str]], libs) -> dict[str, dict]:
         log, _ = p.communicate()
         if p.returncode != 0:
             raise RuntimeError(f"nvcc {name} {lib}:\n{log.decode(errors='replace')}")
-        out[name][lib] = ctypes.CDLL(os.path.join(d, lib + ".so"))
+        cdll = ctypes.CDLL(os.path.join(d, lib + ".so"))
+        old = WS_ARG in common_text() and WS_ARG not in trees[name][1]
+        out[name][lib] = _NoWorkspace(cdll) if old else cdll
     return out
 
 
@@ -105,26 +153,31 @@ def main(argv=None) -> int:
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
-    common = open(os.path.join(_build.CSRC, "attn_common.cuh")).read()
+    common = common_text()
     if argv[:1] == ["--against"]:
         other = argv[1]
         with open(os.path.join(other, "attn_common.cuh")) as fh:
             trees = {"shipped": (_build.CSRC, common), "other": (other, fh.read())}
         libs, cases, ropes = LIBS, AGAINST_CASES, (False, True)
+    elif argv[:1] == ["--fills"]:
+        trees = {"shipped": (_build.CSRC, common)}
+        libs, ropes = ("attn",), (False,)
+        cases = [(c, "f16", "td") for c in FILL_CASES]
     else:
-        if common.count(UNROLL) != 2:
-            raise RuntimeError("attn_common.cuh: expected two score-loop pragmas")
+        if common.count(UNROLL) != 1:
+            raise RuntimeError("attn_common.cuh: expected one score-loop pragma")
         trees = {name: (_build.CSRC, common.replace(UNROLL, pragma))
                  for name, pragma in VARIANTS.items()}
         libs, cases, ropes = ("attn",), [(c, "f16", "td") for c in CASES], (False,)
     built = build(trees, libs)
+    by_pair = FA._by_pair
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     timer = Timer(20)
     cfg = attn_cfg(128)
     for order in (list(built), list(built)[::-1]):
         for cname, kind, layout in cases:
-            args = make_case(gen, *CASES[cname], kind, layout)
+            args = make_case(gen, *{**CASES, **FILL_CASES}[cname], kind, layout)
             q, cache, slots, q_pos, nv, kn, vn = args
             live = (nv > 0) | (q_pos[:, 0] > 0)
             for rope in ropes:
@@ -140,6 +193,11 @@ def main(argv=None) -> int:
                 for name in order:
                     for lib, cdll in built[name].items():
                         _build._libs[lib] = cdll  # FA's launchers load it
+                    # a build before the workspace reads [T, rd/2] tables
+                    # in every entry point
+                    old = any(isinstance(c, _NoWorkspace)
+                              for c in built[name].values())
+                    FA._by_pair = (lambda cache, t: t) if old else by_pair
 
                     def run():
                         return FA.attn_kernel(
@@ -152,6 +210,7 @@ def main(argv=None) -> int:
                     out.append(f"{name} {timer(run):.4f} ms")
                 print(f"{kname} {kind} {layout} {cname}: {' | '.join(out)}",
                       flush=True)
+    FA._by_pair = by_pair
     for lib in libs:
         _build._libs.pop(lib, None)
     return 0
