@@ -9,7 +9,8 @@ serving path gives it and times it (tools/timing.py), at every weight
 layout of the qmm kernels and, for attention, K stored pre-rotated and
 unrotated (self-extend), head_dim 64-256 and query groups of 1-72, and
 the decode kernels at the edges of their cell splits (also against
-decode_split_plain) and twice on the same inputs (equal bits). Then
+decode_split_plain) and twice on the same inputs (equal bits), and the
+prefill kernels at the edges of their cell tiles (equal bits too). Then
 runs a Llama-2-7B-width Q4_K_M model (depth cut to 4 layers, random
 weights from a seed) once through every kernel against each kernel's
 twin, and at f16, q8_0 and q4_0 KV and with self-extend at f16 and q4_0
@@ -29,6 +30,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import socket
 import subprocess
 import sys
@@ -483,6 +485,51 @@ def repeat_checks(gen) -> None:
                 raise AssertionError(f"{kname + rope}: two launches differ")
 
 
+PRE_BN = {128: 64, 256: 32}  # cells per prefill tile by head_dim bound
+                             # (attn_common.cuh PreGeo)
+
+
+def prefill_edge_checks(gen) -> None:
+    """The four prefill kernels, every kind, at the edges of their cell
+    tiles: histories 0, 1, BN - 1, BN, BN + 1 (and an empty row at
+    n_valid = 0) with a chunk that is not a multiple of the query block;
+    a window whose start falls mid-tile and one that leaves whole tiles
+    below it, with softcap; q4_0's 32-byte cells at D = 64 and a "dt"
+    row of T = 201 cells (no 16-byte copies); the 32-cell tiles of D =
+    256. Each is held to attention_reference by attn_check, and two
+    launches of the first case give equal bits."""
+    bn, bn2 = PRE_BN[128], PRE_BN[256]
+    edges = [0, 1, bn - 1, bn, bn + 1, 0]
+    cases = [  # (window, softcap, attn_case kwargs)
+        (0, 0.0, dict(B=6, KH=2, G=2, D=128, T=256, starts=edges, Tc=70,
+                      n_valid=[70] * 5 + [0])),
+        (40, 30.0, dict(B=3, KH=2, G=2, D=128, T=256, starts=[150, 200, 20],
+                        Tc=40, n_valid=[40, 40, 33])),
+        (0, 0.0, dict(B=2, KH=2, G=4, D=64, T=201, starts=[17, 130], Tc=50,
+                      n_valid=[50, 31])),
+        (0, 0.0, dict(B=3, KH=1, G=2, D=256, T=128,
+                      starts=[bn2 - 1, bn2, bn2 + 1], Tc=40, n_valid=[40] * 3)),
+    ]
+    for kind in ("f32", "f16", "q8_0", "q4_0"):
+        for layout in ("td", "dt"):
+            for rope in ("", "_rope"):
+                kname = "attn_prefill" + ("_dt" if layout == "dt" else "") + rope
+                for i, (win, cap, kw) in enumerate(cases):
+                    kw = dict(kw, kind=kind, layout=layout)
+                    *_, args, mode, err, _ = attn_check(gen, kname, kw, win, cap)
+                    same = ""
+                    if i == 0:
+                        y0 = FA.flash_attention(*args, **mode)
+                        y1 = FA.flash_attention(*args, **mode)
+                        if not torch.equal(y0, y1):
+                            raise AssertionError(f"{kname} {kind}: two launches differ")
+                        same = ", equal bits on repeat"
+                    log(f"{kname} tile-edge check {kind} {layout} window={win} "
+                        f"softcap={cap} D={kw['D']} T={kw['T']} starts="
+                        f"{kw['starts']} Tc={kw['Tc']} n_valid={kw['n_valid']}: "
+                        f"max_abs_err {err:.3e} (tol {ATTN_TOL} abs){same}")
+
+
 def attn_phase(timer: Timer, gen) -> list[dict]:
     rows = []
     D = 128
@@ -528,6 +575,7 @@ def attn_phase(timer: Timer, gen) -> list[dict]:
             f"max_abs_err {err:.3e} rel {rel:.3e} (tol {ATTN_TOL} abs)")
     split_checks(gen)
     repeat_checks(gen)
+    prefill_edge_checks(gen)
     for kname, shape, kw, main in attn_cases(D):
         c, args, mode, err, rel = attn_check(gen, kname, kw)
         Tc = kw["Tc"]
@@ -1049,6 +1097,29 @@ def summarize(rows: list[dict], launches: dict) -> list[dict]:
     return out
 
 
+def ptxas_usage(text: str) -> list[tuple[str, str, str]]:
+    """(kernel, registers, spill line) of each entry function in nvcc's
+    -Xptxas -v output; attn:: kernel names shown with their template
+    arguments (attn::prefill_kernel<kind, DT, ROT, DMAX>)."""
+    out, name, spills = [], "?", ""
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            k = re.match(r"_ZN4attn\d+(\w+?)I(.*)EEvNS_4ArgsE", name)
+            if k:
+                args = ", ".join(v if t == "i" else ("true" if v == "1" else "false")
+                                 for t, v in re.findall(r"L([ib])(\d+)E", k.group(2)))
+                name = f"attn::{k.group(1)}<{args}>"
+            spills = ""
+        elif "spill stores" in line:
+            spills = line.strip()
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.append((name, m.group(1), spills))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1066,9 +1137,8 @@ def main() -> int:
     for f in sorted(os.listdir(bdir)):
         if f.endswith(".log"):
             with open(os.path.join(bdir, f)) as fh:
-                for line in fh:
-                    if "registers" in line or "spill" in line:
-                        log(f"  {f}: {line.strip()}")
+                for name, regs, spills in ptxas_usage(fh.read()):
+                    log(f"  {f}: {name}: {regs} registers, {spills}")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     timer = Timer(ITERS)

@@ -245,6 +245,35 @@ def test_wide_heads_match_jax(case, kind, layout):
                *WIDE_CASES[case])
 
 
+# the CUDA prefill kernels' tile edges (attn_common.cuh: 64-cell tiles at
+# D <= 128, 32 at D = 256; chip_smoke.py prefill_edge_checks): histories 0,
+# 1, 63, 64, 65 and a row at n_valid = 0 with a chunk that is no multiple
+# of a query block, over T = 201 cells; a window whose start falls
+# mid-tile and one that leaves whole tiles below it, with softcap; and the
+# 32-cell edges at D = 256
+PREFILL_EDGES = {
+    # name: (B, Tc, T, starts, cfg kwargs, slot_perm, n_valid)
+    "edges": (6, 70, 201, [0, 1, 63, 64, 65, 0], {}, None,
+              [70, 70, 70, 70, 70, 0]),
+    "window_softcap": (3, 40, 256, [150, 200, 20],
+                       dict(window=40, softcap=30.0), None, [40, 40, 33]),
+}
+PREFILL_EDGE_D256 = (3, 40, 128, [31, 32, 33], dict(H=4, KH=2, D=256), None,
+                     None)
+
+
+@pytest.mark.parametrize("layout", ["td", "dt"])
+@pytest.mark.parametrize("kind", ["f32", "f16", "q8_0", "q4_0"])
+@pytest.mark.parametrize("case", list(PREFILL_EDGES))
+def test_prefill_tile_edges_match_jax(case, kind, layout):
+    check_case(kind, layout, 1000 + list(PREFILL_EDGES).index(case),
+               *PREFILL_EDGES[case])
+
+
+def test_prefill_tile_edges_d256_match_jax():
+    check_case("q4_0", "dt", 1010, *PREFILL_EDGE_D256)
+
+
 @pytest.mark.parametrize("H,KH,D,ok", [(4, 2, 256, True), (32, 2, 128, True),
                                        (64, 1, 64, True), (4, 2, 258, False),
                                        (4, 2, 63, False), (6, 4, 64, False)])

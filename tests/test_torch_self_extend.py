@@ -27,7 +27,8 @@ import numpy as np
 import pytest
 import torch
 
-from tests.test_torch_attention import (CASES, DT_CASES, SPLIT_CASES,
+from tests.test_torch_attention import (CASES, DT_CASES, PREFILL_EDGE_D256,
+                                        PREFILL_EDGES, SPLIT_CASES,
                                         SPLIT_EXTRA, check_split, mk_cfg,
                                         run_case)
 from tpu_engine.kernels import flash_attention as JFA
@@ -96,6 +97,20 @@ def test_partial_rope_dim_matches_jax(case, layout, kind):
 def test_ga_n_1_matches_jax(case, layout):
     """ga_n = 1: unrotated K rotated by its plain cell index."""
     check("f16", layout, 700, *CASES[case], ga=(1, 0))
+
+
+@pytest.mark.parametrize("layout", ["td", "dt"])
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("case", list(PREFILL_EDGES))
+def test_prefill_tile_edges_self_extend_match_jax(case, kind, layout):
+    """The prefill kernels' tile edges (test_torch_attention.py) with K
+    stored unrotated: B4 and B7 rotated=False."""
+    check(kind, layout, 1100 + list(PREFILL_EDGES).index(case),
+          *PREFILL_EDGES[case])
+
+
+def test_prefill_tile_edges_d256_self_extend_match_jax():
+    check("f16", "td", 1110, *PREFILL_EDGE_D256)
 
 
 # decode_split_plain with K stored unrotated: the split cases of

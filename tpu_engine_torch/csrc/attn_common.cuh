@@ -30,8 +30,11 @@
 // slot once (start * Dk stored bytes of K and of V per kv head, plus 4 B
 // of scale each when quantized, plus the table rows of the cells under
 // ROT) against 3.35 TB/s; prefill over a long chunk is bound by the score
-// and PV multiply-adds (4 * rows * cells * D per kv head) against the f32
-// rate. Scores, softmax and the PV sum stay in f32 on the CUDA cores.
+// and PV multiply-adds (2 * rows * attended cells * D per kv head, 4 *
+// that in flops) against the f32 rate, 67 TFLOP/s; on the way there by
+// shared-memory reads (32 words a clock an SM against 128 f32 FMAs), so
+// the prefill loops read their operands as 16-byte vectors into register
+// tiles. Scores, softmax and the PV sum stay in f32 on the CUDA cores.
 //
 // Decode (decode_split_kernel, then decode_merge_kernel): a row's cells
 // are cut into splits of DEC_SPLIT, and one block per (row b, kv head,
@@ -60,16 +63,32 @@
 // start.
 //
 // Prefill (prefill_kernel): one block per (row b, kv head, block of query
-// positions, chunk of query heads) reads its cells 32 at a time into
-// shared memory as f32 (load_tile dequantizes on the way; under ROT a
-// second loop over (cell, pair) rotates K), so the rows of a block share
-// each load. A thread owns PV dimensions tid and, above D = 128, tid +
-// 128. Under "td" neighbouring threads load neighbouring d of one cell;
-// under "dt" neighbouring cells of one d, so both read memory in order.
-// The loop stops at the chunk's last position and skips tiles wholly
-// outside a sliding window. Position p of a "virtual cell" is its cell
-// index for p < start and start + j for in-flight row j, so one mask
-// covers both:
+// positions, chunk of query heads) walks its virtual cells in tiles of BN
+// cells. At D <= 128: 256 threads, R = 64 query rows, BN = 64; at D =
+// 256: 128 threads, R = 32, BN = 32 (so that the tiles fit). A thread
+// owns a register tile of 4 rows x BN/16 cells of the scores and 4 rows
+// x D/16 dimensions of the output, and reads Q and K along d, P (stored
+// transposed) and V along the cells, as float4: 0.5 shared words per FMA
+// in the scores and 0.375 in PV at D <= 128 (0.75 and 0.31 at D = 256),
+// against about 1 in the element loops this replaced. The row max and sum of the online softmax
+// are taken by shuffles across the 16 threads of a row, so m and l stay
+// in registers. The stored bytes of each tile's cache cells (bf16, int8,
+// packed q4_0, f32; their scales; under ROT their rope rows [T, rd/2])
+// and its in-flight rows (f32, straight into the K and V tiles) are
+// copied with cp.async (16-byte pieces where addresses allow, as in
+// decode), each under half a tile of arithmetic: two barriers a tile (see
+// prefill_kernel). Cache cells are dequantized (x scale) and under ROT
+// rotated in one pass into the f32 tiles. Shared memory a block, bytes
+// (with ROT): D = 128 f32 184320 (217088), bf16 151552 (184320), q8_0
+// 135680 (168448), q4_0 127488 (160256); D = 256 f32 169984 (202752),
+// bf16 137216 (169984), q8_0 121088 (153856), q4_0 112896 (145664): one
+// block an SM. 158-210 registers a thread and no spills, as nvcc's
+// -Xptxas -v reports them (chip_smoke.py prints them). The query blocks with the most cells run
+// first; the walk starts at the first tile the window reaches and stops
+// at the chunk's last position or start + n_valid, whichever is first;
+// only tiles that cross the diagonal, start + n_valid or the window's
+// start are masked. Position p of a "virtual cell" is its cell index for
+// p < start and start + j for in-flight row j, so one mask covers both:
 //   ok = p <= pos_row  and  (p < start or p - start < n_valid)
 //        and (window <= 0 or p > pos_row - window)
 // Masked scores are -1e30 (not -inf), as in the TPU kernels; decode's
@@ -85,13 +104,11 @@
 namespace attn {
 
 constexpr float NEG_INF = -1e30f;
-constexpr int TB = 32;     // cells per tile (one per lane in the softmax)
-constexpr int NTH = 128;   // threads per block
-constexpr int MAXD = 256;  // head_dim limit: PV dimensions tid and tid + NTH
+constexpr int NTH = 128;   // threads per decode block (prefill: PreGeo::NT)
+constexpr int MAXD = 256;  // head_dim limit
 constexpr int DEC_MAXG = 8;   // query heads per decode block
 constexpr int DEC_SPLIT = 64;  // cache cells per decode split
                                // (kernels/flash_attention.py DEC_SPLIT)
-constexpr int PRE_MAXR = 64;  // query rows per prefill block at D <= NTH
 
 enum Kind { F32 = 0, BF16 = 1, Q8 = 2, Q4 = 3 };
 
@@ -115,107 +132,9 @@ struct Args {
     int rd;               // rotated elements of a K cell (ROT only)
     float* ws;            // decode workspace: [B * H][NS][D] sums, then
                           // [B * H][NS][2] (m, l); unused by prefill
-    int gc, gs, gt;       // decode copy sizes (bytes) of cells, scales, tables
+    int gc, gs, gt;       // copy sizes (bytes) of cells, scales, tables
+    int gn;               // prefill copy size (bytes) of the in-flight rows
 };
-
-// The f32 value of element d of cell p in one (layer, slot, kv head)
-// plane: cells at cbase, scales at sbase.
-template <int KIND, bool DT>
-__device__ __forceinline__ float cell_at(const void* cells, const float* scales,
-                                         size_t cbase, size_t sbase, int p,
-                                         int d, int T, int D)
-{
-    const int Dk = KIND == Q4 ? D / 2 : D;
-    int j = d, sh = 0;
-    if (KIND == Q4 && d >= Dk) {
-        j = d - Dk;
-        sh = 4;
-    }
-    const size_t off = cbase + (DT ? (size_t)j * T + p : (size_t)p * Dk + j);
-    float x;
-    if constexpr (KIND == F32) {
-        x = ((const float*)cells)[off];
-    } else if constexpr (KIND == BF16) {
-        x = __bfloat162float(((const __nv_bfloat16*)cells)[off]);
-    } else if constexpr (KIND == Q8) {
-        x = (float)((const int8_t*)cells)[off];
-    } else {
-        x = (float)((int)((((const uint8_t*)cells)[off] >> sh) & 0xF) - 8);
-    }
-    if constexpr (KIND == Q8 || KIND == Q4) x *= scales[sbase + p];
-    return x;
-}
-
-// Elements d and d + h (d < h <= D/2) of cell p, as cell_at gives them.
-// For q4_0 with h = D/2 both are the nibbles of byte d: one read.
-template <int KIND, bool DT>
-__device__ __forceinline__ void cell_pair(const void* cells, const float* scales,
-                                          size_t cbase, size_t sbase, int p,
-                                          int d, int h, int T, int D,
-                                          float* x0, float* x1)
-{
-    if constexpr (KIND == Q4) {
-        if (h == D / 2) {
-            const size_t off = cbase + (DT ? (size_t)d * T + p : (size_t)p * h + d);
-            const int c = ((const uint8_t*)cells)[off];
-            const float s = scales[sbase + p];
-            *x0 = (float)((c & 0xF) - 8) * s;
-            *x1 = (float)((c >> 4) - 8) * s;
-            return;
-        }
-    }
-    *x0 = cell_at<KIND, DT>(cells, scales, cbase, sbase, p, d, T, D);
-    *x1 = cell_at<KIND, DT>(cells, scales, cbase, sbase, p, d + h, T, D);
-}
-
-// Fill the tile Ks/Vs [TB][lds] with virtual cells p = t0 .. t0 + TB - 1:
-// cache cells below start, in-flight rows (k_new/v_new at new_base +
-// (p - start) * D) below p_end, zeros beyond. ROT: cache cells' K
-// elements d < rd come rotated from the pair loop.
-template <int KIND, bool DT, bool ROT>
-__device__ __forceinline__ void load_tile(float* Ks, float* Vs, int lds,
-                                          const Args& a, size_t cbase,
-                                          size_t sbase, size_t new_base,
-                                          int t0, int start, int p_end)
-{
-    const int D = a.D;
-    const int rd = ROT ? a.rd : 0;
-    for (int i = threadIdx.x; i < TB * D; i += NTH) {
-        // "dt": lanes along cells (contiguous in memory); "td": along d
-        const int t = DT ? i % TB : i / D;
-        const int d = DT ? i / TB : i % D;
-        const int p = t0 + t;
-        float kv = 0.f, vv = 0.f;
-        if (p < start) {
-            if (!ROT || d >= rd)
-                kv = cell_at<KIND, DT>(a.kc, a.ksc, cbase, sbase, p, d, a.T, D);
-            vv = cell_at<KIND, DT>(a.vc, a.vsc, cbase, sbase, p, d, a.T, D);
-        } else if (p < p_end) {
-            const size_t off = new_base + (size_t)(p - start) * D + d;
-            kv = a.k_new[off];
-            vv = a.v_new[off];
-        }
-        if (!ROT || p >= start || d >= rd) Ks[t * lds + d] = kv;
-        Vs[t * lds + d] = vv;
-    }
-    if constexpr (ROT) {
-        const int h = rd / 2;
-        for (int i = threadIdx.x; i < TB * h; i += NTH) {
-            const int t = DT ? i % TB : i / h;
-            const int j = DT ? i / TB : i % h;
-            const int p = t0 + t;
-            if (p < start) {
-                float x0, x1;
-                cell_pair<KIND, DT>(a.kc, a.ksc, cbase, sbase, p, j, h, a.T, D,
-                                    &x0, &x1);
-                const float c = a.cos_t[(size_t)p * h + j];
-                const float s = a.sin_t[(size_t)p * h + j];
-                Ks[t * lds + j] = x0 * c - x1 * s;
-                Ks[t * lds + j + h] = x0 * s + x1 * c;
-            }
-        }
-    }
-}
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -231,37 +150,6 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 __device__ __forceinline__ float cap(float s, float softcap) {
     return softcap > 0.f ? tanhf(s / softcap) * softcap : s;
-}
-
-// Online-softmax fold of the score tile S[r][0..TB) of rows r < R, one
-// warp per row: S becomes p, and m/l/corr advance.
-__device__ __forceinline__ void softmax_tile(float* S, int ld_s, float* m_s,
-                                             float* l_s, float* c_s, int R)
-{
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    for (int r = warp; r < R; r += NTH / 32) {
-        const float s = S[r * ld_s + lane];
-        const float m_prev = m_s[r];
-        const float m_new = fmaxf(m_prev, warp_max(s));
-        const float p = expf(s - m_new);
-        const float sum = warp_sum(p);
-        S[r * ld_s + lane] = p;
-        if (lane == 0) {
-            const float corr = expf(m_prev - m_new);
-            c_s[r] = corr;
-            l_s[r] = l_s[r] * corr + sum;
-            m_s[r] = m_new;
-        }
-    }
-}
-
-// Offsets of row b's slot plane for kv head kh: (cells, scales).
-__device__ __forceinline__ void plane_bases(const Args& a, int KIND_Q4, int b,
-                                            int kh, size_t* cbase, size_t* sbase)
-{
-    const int slot = min(max(a.slot_ids[b], 0), a.S - 1);
-    *sbase = (((size_t)a.li * a.S + slot) * a.KH + kh) * (size_t)a.T;
-    *cbase = *sbase * (size_t)(KIND_Q4 ? a.D / 2 : a.D);
 }
 
 // ---------------------------------------------------------------- decode
@@ -298,9 +186,10 @@ __device__ __forceinline__ void cp_wait() {
 }
 
 // Copy `rows` runs of `run` bytes (a multiple of g) from src + r * sstride
-// to dst + r * dstride in g-byte pieces: cp.async for g = 4, 8 and 16
-// (both addresses g-aligned), plain loads and stores for g = 1 or 2
-// (visible after the caller's barrier).
+// to dst + r * dstride in g-byte pieces, spread over NT threads: cp.async
+// for g = 4, 8 and 16 (both addresses g-aligned), plain loads and stores
+// for g = 1 or 2 (visible after the caller's barrier).
+template <int NT = NTH>
 __device__ __forceinline__ void stage(unsigned char* dst, int dstride,
                                       const unsigned char* src, size_t sstride,
                                       int rows, int run, int g)
@@ -308,11 +197,11 @@ __device__ __forceinline__ void stage(unsigned char* dst, int dstride,
     const int per = run / g;  // pieces per row
     if (per <= 0) return;
     const int total = rows * per;
-    // piece i = threadIdx.x + k * NTH is (row r, piece c), stepped without
+    // piece i = threadIdx.x + k * NT is (row r, piece c), stepped without
     // a division per piece
     int r = threadIdx.x / per, c = threadIdx.x - r * per;
-    const int dr = NTH / per, dc = NTH - dr * per;
-    for (int i = threadIdx.x; i < total; i += NTH) {
+    const int dr = NT / per, dc = NT - dr * per;
+    for (int i = threadIdx.x; i < total; i += NT) {
         unsigned char* d = dst + (size_t)r * dstride + c * g;
         const unsigned char* s = src + r * sstride + c * g;
         if (g == 16) cp_async16(d, s);
@@ -331,14 +220,14 @@ __device__ __forceinline__ void stage(unsigned char* dst, int dstride,
 
 __device__ __forceinline__ int round_up(int x, int g) { return (x + g - 1) / g * g; }
 
-// A split's staged cells as stored (no scale applied): under "td" rows of
-// Dk stored elements per cell, under "dt" Dk rows of DEC_SPLIT cells.
-template <int KIND, bool DT>
+// C staged cells as stored (no scale applied): under "td" rows of Dk
+// stored elements per cell, under "dt" Dk rows of C cells.
+template <int KIND, bool DT, int C = DEC_SPLIT>
 struct Staged {
     const unsigned char* p;
     int Dk;  // stored elements per cell
     __device__ __forceinline__ size_t at(int t, int j) const {
-        return DT ? (size_t)j * DEC_SPLIT + t : (size_t)t * Dk + j;
+        return DT ? (size_t)j * C + t : (size_t)t * Dk + j;
     }
     // element d of cell t (q4_0: d < Dk the low nibble of byte d, else
     // the high nibble of byte d - Dk)
@@ -639,123 +528,368 @@ __global__ void __launch_bounds__(NTH) decode_merge_kernel(const Args a, int NS)
 }
 
 // --------------------------------------------------------------- prefill
-// One block per (row b, kv head, QB query positions, chunk of GC query
-// heads): R = QB * GC rows, row r = (position r / GC, head g0 + r % GC).
-// grid.z walks the head chunks, so any G runs. Thread tid owns PV
-// dimensions tid + j * NTH, j < NDT; at NDT = 2 the launch halves MAXR so
-// that acc[NDT][MAXR] keeps its 64 registers.
-template <int KIND, bool DT, bool ROT, int MAXR, int NDT>
-__global__ void __launch_bounds__(NTH) prefill_kernel(const Args a, int QB,
-                                                      int GC)
-{
-    extern __shared__ float smem[];
-    const int KH = a.KH, G = a.G, D = a.D, Tc = a.Tc;
-    const int R = QB * GC;  // query rows of this block: (position, head) pairs
-    const int lds = D + 1;
-    float* Qs = smem;                  // [R][D]
-    float* Ks = Qs + R * D;            // [TB][D + 1]
-    float* Vs = Ks + TB * lds;         // [TB][D + 1]
-    float* Ss = Vs + TB * lds;         // [R][TB]
-    float* m_s = Ss + R * TB;
-    float* l_s = m_s + R;
-    float* c_s = l_s + R;
+// Tile geometry of the prefill kernel for head_dim up to DMAX (128 or
+// 256): NT threads, R query rows a block, BN cells a tile; thread (ty, tx) = (tid /
+// TX, tid % TX) owns rows ty * RM + i (i < RM), score cells tx + TX * j
+// (j < CN) and output dimensions 4 (tx + TX u) + e (u < DN / 4, e < 4).
+template <int DMAX>
+struct PreGeo {
+    static constexpr int NT = DMAX > 128 ? 128 : 256;  // threads
+    static constexpr int TX = 16, TY = NT / TX, RM = 4;
+    static constexpr int R = TY * RM;
+    static constexpr int BN = DMAX > 128 ? 32 : 64;
+    static constexpr int CN = BN / TX;
+    static constexpr int DN = DMAX / TX;
+};
 
-    const int b = blockIdx.x / KH, kh = blockIdx.x % KH, qb = blockIdx.y;
-    const int g0 = blockIdx.z * GC;          // first query head of the chunk
-    const int tid = threadIdx.x;
-    const int H = KH * G;
+// Dynamic shared memory of prefill_kernel, in bytes: f32 tiles Q [R][LD],
+// K and V [BN][LD], P transposed [BN][LP] (LD = D rounded up to 4, plus 4,
+// and LP = R + 4, against bank conflicts), then the stored bytes of
+// the tile's cache cells as copied (K, V), their scales and, under ROT,
+// their cos/sin rows [BN][h].
+struct PrefillSmem {
+    size_t q, k, v, p, rk, rv, ks, vs, cs, sn, total;
+    int Dp, LD, LP;
+    __host__ __device__ PrefillSmem(int D, int cell_bytes, int h, int R, int BN,
+                                    bool quant) {
+        Dp = (D + 3) / 4 * 4;
+        LD = Dp + 4;
+        LP = R + 4;
+        q = 0;
+        k = q + (size_t)R * LD * 4;
+        v = k + (size_t)BN * LD * 4;
+        p = v + (size_t)BN * LD * 4;
+        rk = p + (size_t)BN * LP * 4;
+        rv = rk + align16((size_t)BN * cell_bytes);
+        ks = rv + align16((size_t)BN * cell_bytes);
+        vs = ks + (quant ? BN * 4 : 0);
+        cs = vs + (quant ? BN * 4 : 0);
+        sn = cs + (size_t)BN * h * 4;
+        total = sn + (size_t)BN * h * 4;
+    }
+};
+
+// f(c, d) for every c < n, d < W, spread over the block: "dt" with c
+// fastest (a staged d-row holds BN cells), "td" with d fastest (a cell's
+// elements are contiguous), stepped without a division per pair.
+template <bool DT, int BN, int NT, typename F>
+__device__ __forceinline__ void for_cells(int n, int W, F f)
+{
+    if (n <= 0 || W <= 0) return;
+    if constexpr (DT) {
+        for (int i = threadIdx.x; i < BN * W; i += NT) {
+            const int c = i % BN, d = i / BN;
+            if (c < n) f(c, d);
+        }
+    } else {
+        int c = threadIdx.x / W, d = threadIdx.x - c * W;
+        const int dc = NT / W, dd = NT - dc * W;
+        for (int i = threadIdx.x; i < n * W; i += NT) {
+            f(c, d);
+            c += dc;
+            d += dd;
+            if (d >= W) {
+                d -= W;
+                c++;
+            }
+        }
+    }
+}
+
+// One block per (row b, kv head, QB query positions, chunk of GC query
+// heads): Rb = QB * GC <= R rows, row r = (position r / GC, head g0 + r %
+// GC); grid.z walks the head chunks, so any G runs, and blockIdx.y runs
+// the query blocks last to first, so the blocks with the most cells
+// launch first. Each tile of BN virtual cells passes two barriers:
+//   A: V's in-flight rows copied (cp.async) into the V tile and the next
+//      tile's stored K bytes into the staging area; this tile's staged V
+//      cells dequantized into the V tile; scores from the Q and K tiles,
+//      the online softmax (row max and sum by shuffles over the TX
+//      threads of a row), P into its tile. Barrier.
+//   B: the next tile's in-flight K rows copied into the K tile and its
+//      stored V bytes into the staging area; the next tile's staged K
+//      cells dequantized (ROT: rotated) into the K tile; PV. Barrier.
+// Each copy runs under half a tile of arithmetic. Cells past p_end are
+// zeros, so that a weight of 1 (a row with no valid cell yet) adds
+// nothing.
+template <int KIND, bool DT, bool ROT, int DMAX>
+__global__ void __launch_bounds__(PreGeo<DMAX>::NT, 1) prefill_kernel(
+    const Args a, int QB, int GC)
+{
+    using Geo = PreGeo<DMAX>;
+    constexpr int NT = Geo::NT, TX = Geo::TX, RM = Geo::RM, R = Geo::R, BN = Geo::BN;
+    constexpr int CN = Geo::CN, DN = Geo::DN, ES = Bytes<KIND>::v;
+    constexpr bool QUANT = KIND == Q8 || KIND == Q4;
+    extern __shared__ __align__(16) unsigned char psmem[];
+    const int KH = a.KH, G = a.G, D = a.D, Tc = a.Tc, T = a.T;
+    const int Dk = KIND == Q4 ? D / 2 : D;
+    const int h = ROT ? a.rd / 2 : 0;  // rotated pairs
+    const PrefillSmem L(D, Dk * ES, h, R, BN, QUANT);
+    const int Dp = L.Dp, LD = L.LD, LP = L.LP;
+    float* Qs = (float*)(psmem + L.q);
+    float* Ks = (float*)(psmem + L.k);
+    float* Vs = (float*)(psmem + L.v);
+    float* Pt = (float*)(psmem + L.p);
+    unsigned char* rK = psmem + L.rk;
+    unsigned char* rV = psmem + L.rv;
+    float* ksc = (float*)(psmem + L.ks);
+    float* vsc = (float*)(psmem + L.vs);
+    float* cs = (float*)(psmem + L.cs);
+    float* sn = (float*)(psmem + L.sn);
+
+    const int b = blockIdx.x / KH, kh = blockIdx.x % KH;
+    const int qb = gridDim.y - 1 - blockIdx.y;
+    const int g0 = blockIdx.z * GC;  // first query head of the chunk
+    const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
+    const int H = KH * G, Rb = QB * GC;
+    const int slot = min(max(a.slot_ids[b], 0), a.S - 1);
     const int start = a.starts[b];
     const int nv = a.n_valid[b];
     const int window = a.window;
-    size_t cbase, sbase;
-    plane_bases(a, KIND == Q4, b, kh, &cbase, &sbase);
+    const size_t sbase = (((size_t)a.li * a.S + slot) * KH + kh) * (size_t)T;
+    const size_t cbase = sbase * Dk;
     const size_t new_base = ((size_t)b * KH + kh) * (size_t)Tc * D;
-    const int t_lo = qb * QB;                // first query position (relative)
-    const int t_hi = min(Tc, t_lo + QB);     // one past the last
+    const int t_lo = qb * QB;             // first query position (relative)
+    const int t_hi = min(Tc, t_lo + QB);  // one past the last
+    // virtual cells [lo, p_end): those past start + n_valid are masked in
+    // every row, so the walk stops there
+    const int p_end = min(start + t_hi, start + max(nv, 0));
+    int lo = window > 0 ? max(0, start + t_lo - window + 1) : 0;
+    lo = lo / BN * BN;
 
-    for (int i = tid; i < R * D; i += NTH) {
-        const int r = i / D, d = i % D;
+    // the tile at t0: cache cells c < n_cache(t0), in-flight rows up to
+    // n_live(t0), zeros beyond
+    auto n_cache = [&](int t0) { return min(max(start - t0, 0), BN); };
+    auto n_live = [&](int t0) { return min(max(p_end - t0, 0), BN); };
+    // cp.async of the stored bytes of the tile's cache cells (K: with the
+    // scales and rope rows; V: with the scales)
+    auto stage_cache = [&](bool v, int t0) {
+        const int n = n_cache(t0);
+        if (n <= 0) return;
+        const unsigned char* cells = (const unsigned char*)(v ? a.vc : a.kc);
+        unsigned char* dst = v ? rV : rK;
+        if constexpr (DT)  // Dk runs of the tile's cells
+            stage<NT>(dst, BN * ES, cells + (cbase + t0) * ES, (size_t)T * ES, Dk,
+                      round_up(n * ES, a.gc), a.gc);
+        else  // one run of whole cells
+            stage<NT>(dst, 0, cells + (cbase + (size_t)t0 * Dk) * ES, 0, 1,
+                      n * Dk * ES, a.gc);
+        if constexpr (QUANT)
+            stage<NT>((unsigned char*)(v ? vsc : ksc), 0,
+                      (const unsigned char*)((v ? a.vsc : a.ksc) + sbase + t0), 0, 1,
+                      round_up(n * 4, a.gs), a.gs);
+        if (ROT && !v && h > 0)
+            for (int k = 0; k < 2; k++)
+                stage<NT>((unsigned char*)(k ? sn : cs), 0,
+                          (const unsigned char*)((k ? a.sin_t : a.cos_t) + (size_t)t0 * h),
+                          0, 1, n * h * 4, a.gt);
+    };
+    // cp.async of the tile's in-flight rows (f32) into the K or V tile,
+    // and zeros past p_end
+    auto stage_new = [&](bool v, int t0) {
+        float* dst = v ? Vs : Ks;
+        const int c0 = n_cache(t0), c1 = n_live(t0);
+        if (c1 > c0)
+            stage<NT>((unsigned char*)(dst + (size_t)c0 * LD), LD * 4,
+                      (const unsigned char*)((v ? a.v_new : a.k_new) + new_base +
+                                             (size_t)(t0 + c0 - start) * D),
+                      (size_t)D * 4, c1 - c0, D * 4, a.gn);
+        for (int i = tid; i < (BN - c1) * Dp; i += NT)
+            dst[(c1 + i / Dp) * LD + i % Dp] = 0.f;
+    };
+    // the staged cache cells of the tile as f32 (x scale) into the K or V
+    // tile; K under ROT rotated by pairs (j, j + h), j < h
+    auto dequant = [&](bool v, int t0) {
+        const int n = n_cache(t0);
+        float* dst = v ? Vs : Ks;
+        const float* sc = v ? vsc : ksc;
+        const Staged<KIND, DT, BN> S{v ? rV : rK, Dk};
+        int d0 = 0;
+        if (ROT && !v) {
+            for_cells<DT, BN, NT>(n, h, [&](int c, int j) {
+                float x0, x1;
+                S.pair(c, j, h, &x0, &x1);
+                if constexpr (QUANT) {
+                    x0 *= sc[c];
+                    x1 *= sc[c];
+                }
+                const float co = cs[c * h + j], si = sn[c * h + j];
+                dst[c * LD + j] = x0 * co - x1 * si;
+                dst[c * LD + j + h] = x0 * si + x1 * co;
+            });
+            d0 = 2 * h;
+        }
+        for_cells<DT, BN, NT>(n, D - d0, [&](int c, int e) {
+            float x = S.el(c, d0 + e);
+            if constexpr (QUANT) x *= sc[c];
+            dst[c * LD + d0 + e] = x;
+        });
+    };
+
+    for (int i = tid; i < R * Dp; i += NT) {
+        const int r = i / Dp, d = i - r * Dp;
         const int t = t_lo + r / GC, g = g0 + r % GC;
-        Qs[i] = t < Tc && g < G
+        Qs[r * LD + d] = r < Rb && t < Tc && g < G && d < D
                     ? a.q[(((size_t)b * Tc + t) * H + kh * G + g) * D + d] : 0.f;
     }
-    for (int r = tid; r < R; r += NTH) {
-        m_s[r] = NEG_INF;
-        l_s[r] = 0.f;
+    for (int i = tid; i < BN * (Dp - D); i += NT) {  // pad columns, never copied
+        const int c = i / (Dp - D), d = D + i % (Dp - D);
+        Ks[c * LD + d] = 0.f;
+        Vs[c * LD + d] = 0.f;
     }
-    float acc[NDT][MAXR];
+    float m[RM], l[RM], acc[RM][DN];
 #pragma unroll
-    for (int j = 0; j < NDT; j++)
+    for (int i = 0; i < RM; i++) {
+        m[i] = NEG_INF;
+        l[i] = 0.f;
 #pragma unroll
-        for (int r = 0; r < MAXR; r++) acc[j][r] = 0.f;
-
-    const int p_end = start + t_hi;  // virtual cells [lo, p_end)
-    int lo = window > 0 ? max(0, start + t_lo - window + 1) : 0;
-    lo = lo / TB * TB;
-    const int lane = tid & 31, wq = tid >> 5;
-    for (int t0 = lo; t0 < p_end; t0 += TB) {
-        __syncthreads();
-        load_tile<KIND, DT, ROT>(Ks, Vs, lds, a, cbase, sbase, new_base, t0,
-                                 start, p_end);
-        __syncthreads();
-        {   // scores: lane = cell, rows wq, wq + 4, ...
-            float s[MAXR / 4];
-#pragma unroll
-            for (int i = 0; i < MAXR / 4; i++) s[i] = 0.f;
-            // unrolled by 8: 2.8x faster on the H100 than the compiler's
-            // own choice at B=1 Tc=512 (unrolled by 4: 1.04x), as
-            // tpu_engine_torch/tools/attn_ab.py measures
-#pragma unroll 8
-            for (int d = 0; d < D; d++) {
-                const float kd = Ks[lane * lds + d];
-#pragma unroll
-                for (int i = 0; i < MAXR / 4; i++) {
-                    const int r = wq + 4 * i;
-                    if (r < R) s[i] = fmaf(Qs[r * D + d], kd, s[i]);
-                }
-            }
-            const int p = t0 + lane;
-#pragma unroll
-            for (int i = 0; i < MAXR / 4; i++) {
-                const int r = wq + 4 * i;
-                if (r < R) {
-                    const int pos = start + t_lo + r / GC;
-                    const bool ok = p <= pos && (p < start || p - start < nv)
-                                    && (window <= 0 || p > pos - window);
-                    Ss[r * TB + lane] = ok ? cap(s[i] * a.scale, a.softcap) : NEG_INF;
-                }
-            }
-        }
-        __syncthreads();
-        softmax_tile(Ss, TB, m_s, l_s, c_s, R);
-        __syncthreads();
-#pragma unroll
-        for (int j = 0; j < NDT; j++) {
-            const int d = tid + j * NTH;
-            if (d < D) {
-#pragma unroll
-                for (int r = 0; r < MAXR; r++)
-                    if (r < R) acc[j][r] *= c_s[r];
-                for (int t = 0; t < TB; t++) {
-                    const float v = Vs[t * lds + d];
-#pragma unroll
-                    for (int r = 0; r < MAXR; r++)
-                        if (r < R) acc[j][r] = fmaf(Ss[r * TB + t], v, acc[j][r]);
-                }
-            }
-        }
+        for (int k = 0; k < DN; k++) acc[i][k] = 0.f;
     }
+    stage_cache(false, lo);
+    stage_new(false, lo);
+    stage_cache(true, lo);
+    cp_commit();
+    cp_wait<0>();
     __syncthreads();
+    dequant(false, lo);
+    __syncthreads();
+
+    for (int t0 = lo; t0 < p_end; t0 += BN) {
+        const int t1 = t0 + BN;
+        const bool more = t1 < p_end;
+        // ---- A
+        stage_new(true, t0);
+        if (more) stage_cache(false, t1);
+        cp_commit();
+        dequant(true, t0);
+        float s[RM][CN];
 #pragma unroll
-    for (int j = 0; j < NDT; j++) {
-        const int d = tid + j * NTH;
-        if (d < D) {
+        for (int i = 0; i < RM; i++)
 #pragma unroll
-            for (int r = 0; r < MAXR; r++) {
-                const int t = t_lo + r / GC, g = g0 + r % GC;
-                if (r < R && t < Tc && g < G)
-                    a.out[(((size_t)b * Tc + t) * H + kh * G + g) * D + d] =
-                        acc[j][r] / fmaxf(l_s[r], 1e-30f);
+            for (int j = 0; j < CN; j++) s[i][j] = 0.f;
+        const float* qrow = Qs + ty * RM * LD;
+#pragma unroll 2
+        for (int d = 0; d < Dp; d += 4) {
+            float4 kv[CN];
+#pragma unroll
+            for (int j = 0; j < CN; j++)
+                kv[j] = *(const float4*)(Ks + (tx + TX * j) * LD + d);
+#pragma unroll
+            for (int i = 0; i < RM; i++) {
+                const float4 qv = *(const float4*)(qrow + i * LD + d);
+#pragma unroll
+                for (int j = 0; j < CN; j++) {
+                    s[i][j] = fmaf(qv.x, kv[j].x, s[i][j]);
+                    s[i][j] = fmaf(qv.y, kv[j].y, s[i][j]);
+                    s[i][j] = fmaf(qv.z, kv[j].z, s[i][j]);
+                    s[i][j] = fmaf(qv.w, kv[j].w, s[i][j]);
+                }
+            }
+        }
+        // the mask only on tiles that cross the diagonal, the end of the
+        // valid rows or the window's start
+        const int last = t0 + BN - 1;
+        const bool edge = !(last <= start + t_lo && last < start + nv &&
+                            (window <= 0 || t0 > start + t_hi - 1 - window));
+        float corr[RM];
+#pragma unroll
+        for (int i = 0; i < RM; i++) {
+            const int pos = start + t_lo + (ty * RM + i) / GC;
+            float mx = NEG_INF;
+#pragma unroll
+            for (int j = 0; j < CN; j++) {
+                float x = cap(s[i][j] * a.scale, a.softcap);
+                if (edge) {
+                    const int p = t0 + tx + TX * j;
+                    const bool ok = p <= pos && (p < start || p - start < nv) &&
+                                    (window <= 0 || p > pos - window);
+                    x = ok ? x : NEG_INF;
+                }
+                s[i][j] = x;
+                mx = fmaxf(mx, x);
+            }
+#pragma unroll
+            for (int o = TX / 2; o > 0; o >>= 1)
+                mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+            const float mn = fmaxf(m[i], mx);
+            float sum = 0.f;
+#pragma unroll
+            for (int j = 0; j < CN; j++) {
+                s[i][j] = expf(s[i][j] - mn);
+                sum += s[i][j];
+            }
+#pragma unroll
+            for (int o = TX / 2; o > 0; o >>= 1)
+                sum += __shfl_xor_sync(0xffffffffu, sum, o);
+            corr[i] = expf(m[i] - mn);
+            l[i] = l[i] * corr[i] + sum;
+            m[i] = mn;
+        }
+#pragma unroll
+        for (int j = 0; j < CN; j++)
+#pragma unroll
+            for (int i = 0; i < RM; i += 4)
+                *(float4*)(Pt + (tx + TX * j) * LP + ty * RM + i) =
+                    make_float4(s[i][j], s[i + 1][j], s[i + 2][j], s[i + 3][j]);
+        cp_wait<0>();
+        __syncthreads();
+        // ---- B
+        if (more) {
+            stage_new(false, t1);
+            stage_cache(true, t1);
+        }
+        cp_commit();
+        if (more) dequant(false, t1);
+#pragma unroll
+        for (int i = 0; i < RM; i++)
+#pragma unroll
+            for (int k = 0; k < DN; k++) acc[i][k] *= corr[i];
+        const int cn = n_live(t0);  // the zeros past it add nothing
+        for (int c = 0; c < cn; c++) {
+            float pr[RM];
+#pragma unroll
+            for (int i = 0; i < RM; i += 4) {
+                const float4 x = *(const float4*)(Pt + c * LP + ty * RM + i);
+                pr[i] = x.x;
+                pr[i + 1] = x.y;
+                pr[i + 2] = x.z;
+                pr[i + 3] = x.w;
+            }
+#pragma unroll
+            for (int u = 0; u < DN / 4; u++) {
+                const int d = 4 * (tx + TX * u);
+                if (d < D) {
+                    const float4 x = *(const float4*)(Vs + c * LD + d);
+#pragma unroll
+                    for (int i = 0; i < RM; i++) {
+                        acc[i][4 * u] = fmaf(pr[i], x.x, acc[i][4 * u]);
+                        acc[i][4 * u + 1] = fmaf(pr[i], x.y, acc[i][4 * u + 1]);
+                        acc[i][4 * u + 2] = fmaf(pr[i], x.z, acc[i][4 * u + 2]);
+                        acc[i][4 * u + 3] = fmaf(pr[i], x.w, acc[i][4 * u + 3]);
+                    }
+                }
+            }
+        }
+        cp_wait<0>();
+        __syncthreads();
+    }
+#pragma unroll
+    for (int i = 0; i < RM; i++) {
+        const int r = ty * RM + i;
+        const int t = t_lo + r / GC, g = g0 + r % GC;
+        if (r >= Rb || t >= Tc || g >= G) continue;
+        float* o = a.out + (((size_t)b * Tc + t) * H + kh * G + g) * D;
+        const float den = fmaxf(l[i], 1e-30f);
+#pragma unroll
+        for (int u = 0; u < DN / 4; u++) {
+            const int d = 4 * (tx + TX * u);
+            if (D % 4 == 0 && d < D) {
+                *(float4*)(o + d) = make_float4(acc[i][4 * u] / den, acc[i][4 * u + 1] / den,
+                                                acc[i][4 * u + 2] / den, acc[i][4 * u + 3] / den);
+            } else {
+#pragma unroll
+                for (int e = 0; e < 4; e++)
+                    if (d + e < D) o[d + e] = acc[i][4 * u + e] / den;
             }
         }
     }
@@ -826,30 +960,41 @@ int decode_launch(const Args& a, cudaStream_t stream)
                      : decode_launch_d<KIND, DT, ROT, 1>(a, stream);
 }
 
-template <int KIND, bool DT, bool ROT, int NDT>
-int prefill_launch_d(const Args& a, cudaStream_t stream)
+template <int KIND, bool DT, bool ROT, int DMAX>
+int prefill_launch_d(const Args& a0, cudaStream_t stream)
 {
-    constexpr int MAXR = PRE_MAXR / NDT;
-    const int GC = min(a.G, MAXR);  // query heads per block
-    const int QB = MAXR / GC;       // query positions per block
-    const int R = QB * GC;
-    const int D = a.D;
-    const size_t smem = sizeof(float) *
-        ((size_t)R * D + 2 * TB * (D + 1) + (size_t)R * TB + 3 * R);
-    auto kern = prefill_kernel<KIND, DT, ROT, MAXR, NDT>;
+    using Geo = PreGeo<DMAX>;
+    Args a = a0;
+    constexpr int ES = Bytes<KIND>::v;
+    constexpr bool QUANT = KIND == Q8 || KIND == Q4;
+    const int Dk = KIND == Q4 ? a.D / 2 : a.D;
+    const int h = ROT ? a.rd / 2 : 0;
+    // "td": a cell's Dk elements are one run; "dt": a d-row of T cells
+    const size_t run = DT ? (size_t)a.T * ES : (size_t)Dk * ES;
+    a.gc = min(gran(a.kc, run, 0), gran(a.vc, run, 0));
+    const size_t srow = (size_t)a.T * 4;
+    a.gs = QUANT ? min(gran(a.ksc, srow, 0), gran(a.vsc, srow, 0)) : 4;
+    // tables [T, h] in both layouts: a cell's row is a run
+    a.gt = ROT && h > 0 ? min(gran(a.cos_t, (size_t)h * 4, 0),
+                              gran(a.sin_t, (size_t)h * 4, 0)) : 4;
+    a.gn = min(gran(a.k_new, (size_t)a.D * 4, 0), gran(a.v_new, (size_t)a.D * 4, 0));
+    const int GC = min(a.G, Geo::R);  // query heads per block
+    const int QB = Geo::R / GC;       // query positions per block
+    const size_t smem = PrefillSmem(a.D, Dk * ES, h, Geo::R, Geo::BN, QUANT).total;
+    auto kern = prefill_kernel<KIND, DT, ROT, DMAX>;
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     dim3 grid(a.B * a.KH, (a.Tc + QB - 1) / QB, (a.G + GC - 1) / GC);
-    kern<<<grid, NTH, smem, stream>>>(a, QB, GC);
+    kern<<<grid, Geo::NT, smem, stream>>>(a, QB, GC);
     return (int)cudaGetLastError();
 }
 
 template <int KIND, bool DT, bool ROT>
 int prefill_launch(const Args& a, cudaStream_t stream)
 {
-    return a.D > NTH ? prefill_launch_d<KIND, DT, ROT, 2>(a, stream)
-                     : prefill_launch_d<KIND, DT, ROT, 1>(a, stream);
+    return a.D > 128 ? prefill_launch_d<KIND, DT, ROT, 256>(a, stream)
+                     : prefill_launch_d<KIND, DT, ROT, 128>(a, stream);
 }
 
 // The entry point of one layout and K storage: checks the limits, then
@@ -908,7 +1053,7 @@ inline Args make_args(const void* q, const void* k_new, const void* v_new,
     a.sin_t = (const float*)sin_t;
     a.rd = rd;
     a.ws = (float*)ws;
-    a.gc = a.gs = a.gt = 4;
+    a.gc = a.gs = a.gt = a.gn = 4;
     return a;
 }
 

@@ -1,18 +1,13 @@
 """A/B of the attention kernels on the card.
 
-    python -m tpu_engine_torch.tools.attn_ab                # needs one CUDA card
-    python -m tpu_engine_torch.tools.attn_ab --against DIR  # DIR: another csrc/
-    python -m tpu_engine_torch.tools.attn_ab --fills        # decode by fill
+    python -m tpu_engine_torch.tools.attn_ab --against DIR  # needs one CUDA card
+    python -m tpu_engine_torch.tools.attn_ab --fills
 
-Without options: builds csrc/attn.cu three times with the prefill score
-loop's ``#pragma unroll 8`` (attn_common.cuh) replaced: removed (the
-compiler's own choice), 4, and 8 as shipped, and times attn_decode and
-attn_prefill on f16 "td" caches. With --against: builds the four attention sources
-(attn.cu, attn_dt.cu, attn_rope.cu, attn_dt_rope.cu) as shipped and as
-they are in DIR (the csrc/ of another checkout, e.g. the parent commit
-unpacked with git archive; their C interface this one's or the one
-before the decode workspace), and
-times every kernel at chip_smoke.py's shapes: decode B=8 fills 1..511
+With --against DIR: builds the four attention sources (attn.cu,
+attn_dt.cu, attn_rope.cu, attn_dt_rope.cu) as shipped and as they are in
+DIR (the csrc/ of another checkout, e.g. the parent commit unpacked with
+git archive; their C interface this one's or the one before the decode
+workspace), and times every kernel at chip_smoke.py's shapes: decode B=8 fills 1..511
 and fills 4..2047 at T=2048, prefill B=1 Tc=512 at history 0 and 256
 and the grouped B=8 Tc=256 step, f16 "td" and q8_0/q4_0 "dt", K stored
 rotated and unrotated. Shapes are Llama-2-7B heads (KH=32, G=1,
@@ -44,8 +39,6 @@ from ..model.config import ModelConfig
 from ..model.llama import attention_reference
 from .timing import Timer
 
-UNROLL = "#pragma unroll 8\n"
-VARIANTS = {"compiler": "", "unroll4": "#pragma unroll 4\n", "unroll8": UNROLL}
 LIBS = ("attn", "attn_dt", "attn_rope", "attn_dt_rope")
 FILLS = [1, 511, 37, 256, 128, 400, 2, 300]
 CASES = {  # name: (B, T, starts, Tc, n_valid)
@@ -164,11 +157,7 @@ def main(argv=None) -> int:
         libs, ropes = ("attn",), (False,)
         cases = [(c, "f16", "td") for c in FILL_CASES]
     else:
-        if common.count(UNROLL) != 1:
-            raise RuntimeError("attn_common.cuh: expected one score-loop pragma")
-        trees = {name: (_build.CSRC, common.replace(UNROLL, pragma))
-                 for name, pragma in VARIANTS.items()}
-        libs, cases, ropes = ("attn",), [(c, "f16", "td") for c in CASES], (False,)
+        raise SystemExit("attn_ab: give --against DIR or --fills")
     built = build(trees, libs)
     by_pair = FA._by_pair
     gen = torch.Generator(device="cuda")
