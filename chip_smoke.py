@@ -3,11 +3,12 @@
     python3 chip_smoke.py            # needs one CUDA card (an H100 here)
 
 Builds every CUDA kernel of the serving path from tpu_engine_torch/csrc,
-holds each against its plain PyTorch version (qmm_nib4 against its twin
-qmm_nib4_plain, which rounds to bf16 as it does) at the shapes the
-serving path gives it and times it (tools/timing.py), at every weight
-layout of the qmm kernels and, for attention, K stored pre-rotated and
-unrotated (self-extend), head_dim 64-256 and query groups of 1-72, and
+holds each against its plain PyTorch version (qmm_nib4 and qmm_i8 against
+their twin, which rounds to bf16 as they do, with equal bits on repeat)
+at the shapes the serving path gives it and times it (tools/timing.py),
+at every weight layout of the qmm kernels and a ragged tensor of each,
+and, for attention, K stored pre-rotated and unrotated (self-extend),
+head_dim 64-256 and query groups of 1-72, and
 the decode kernels at the edges of their cell splits (also against
 decode_split_plain) and twice on the same inputs (equal bits), and the
 prefill kernels at the edges of their cell tiles (equal bits too). Then
@@ -54,14 +55,14 @@ from tpu_engine_torch.serve import ops as OPS
 from tpu_engine_torch.tools.timing import Timer
 
 HBM_BYTES_S = 3.35e12  # H100 SXM HBM3
-F32_FLOPS_S = 67e12    # H100 SXM f32 (CUDA cores): qmm_i8 and attention
-BF16_FLOPS_S = 989e12  # H100 SXM dense bf16 (tensor cores): qmm_nib4
+F32_FLOPS_S = 67e12    # H100 SXM f32 (CUDA cores): attention
+BF16_FLOPS_S = 989e12  # H100 SXM dense bf16 (tensor cores): qmm_nib4, qmm_i8
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 N_LAYER = 4  # depth cut of the Llama-2-7B widths (32 layers) for the smoke
 ITERS = 20   # timed launches per kernel shape
 QMM_TOL = 1e-4     # max |kernel - twin| / max |twin|: the same roundings,
-                   # sum order (and qmm_nib4's bf16x3 bias product)
+                   # sum order (and the kernels' bf16x3 bias product)
 ATTN_TOL = 2e-4    # max |kernel - plain| (outputs O(1)): f32 sums, sum order
 LOGIT_TOL = 2e-3   # max |dlogit| / max |logit| over the model phase
 TIE_TOL = 1e-5     # self-extend: one row's top-1 may differ where plain's
@@ -82,13 +83,21 @@ def smi_line() -> str:
 
 
 # ---------------------------------------------------------------- kernels
-def rand_qtensor(gen, n, k, kind, group, has_bias) -> W.QTensor:
+# the values of each i8 type's int8 plane (quant/device_format.py)
+I8_RANGE = {"Q8_0": (-128, 128), "Q5_0": (-16, 16), "Q5_1": (0, 32),
+            "Q5_K": (0, 32), "Q6_K": (-32, 32), "Q3_K": (-4, 4)}
+
+
+def rand_qtensor(gen, name, n, k, kind, group, has_bias) -> W.QTensor:
+    """Random weights of the layout; an i8 plane spans the values of the
+    type that ends `name`."""
     dev = "cuda"
     if kind == "nib4":
         qs = torch.randint(0, 256, (n, k // 2), generator=gen, device=dev,
                            dtype=torch.uint8)
-    else:  # Q6_K values span -32..31
-        qs = torch.randint(-32, 32, (n, k), generator=gen, device=dev,
+    else:
+        lo, hi = I8_RANGE[name.split()[-1]]
+        qs = torch.randint(lo, hi, (n, k), generator=gen, device=dev,
                            dtype=torch.int8)
     ng = k // group
     scale = torch.rand((n, ng), generator=gen, device=dev) * 2e-3 + 1e-4
@@ -107,7 +116,7 @@ QMM_SHAPES = [  # (tensor, kind, group, has_bias, N, K) at Llama-2-7B widths
     ("w_down Q6_K", "i8", 16, False, 4096, 11008),
 ]
 # every other layout of each kernel (quant/device_format.py LAYOUTS), and
-# a nib4 tensor without a bias, on wo's shape; and a ragged one (N, K and
+# a nib4 tensor without a bias, on wo's shape; and ragged ones (N, K and
 # M off every tile and chunk edge): correctness only
 QMM_LAYOUTS = [  # (tensor, kind, group, has_bias, N, K, Ms)
     ("wo Q4_0", "nib4", 32, True, 4096, 4096, (8, 32, 512)),
@@ -115,14 +124,19 @@ QMM_LAYOUTS = [  # (tensor, kind, group, has_bias, N, K, Ms)
     ("wo Q2_K", "nib4", 16, True, 4096, 4096, (8, 32, 512)),
     ("wo nib4 no bias", "nib4", 32, False, 4096, 4096, (8, 32, 512)),
     ("ragged Q4_K", "nib4", 32, True, 1000, 4128, (3, 45, 300)),
-    ("wo Q8_0", "i8", 32, False, 4096, 4096, (8, 32)),
-    ("wo Q5_K", "i8", 32, True, 4096, 4096, (8, 32)),
+    ("wo Q8_0", "i8", 32, False, 4096, 4096, (8, 32, 512)),
+    ("wo Q5_K", "i8", 32, True, 4096, 4096, (8, 32, 512)),
+    ("wo Q3_K", "i8", 16, False, 4096, 4096, (8, 32, 512)),
+    ("ragged Q6_K", "i8", 16, False, 1000, 4128, (3, 45, 300)),
+    ("ragged Q5_0", "i8", 32, True, 1000, 4128, (3, 45, 300)),
 ]
 
 
 def qmm_check(name, qt, x) -> tuple[float, float]:
-    """qmm_cuda against the kernel's plain twin on x; (max abs, rel err)."""
+    """qmm_cuda against the kernel's plain twin on x, and a second launch
+    on x to the same bits; (max abs, rel err)."""
     y = DM.qmm_cuda(x, qt)
+    again = DM.qmm_cuda(x, qt)
     ref = DM.qmatmul_twin(x, qt)
     torch.cuda.synchronize()
     err = float((y - ref).abs().max())
@@ -130,60 +144,59 @@ def qmm_check(name, qt, x) -> tuple[float, float]:
     if not (torch.isfinite(y).all() and rel <= QMM_TOL):
         raise AssertionError(f"qmm {name} M={x.shape[0]}: rel err {rel:.3e} "
                              f"> {QMM_TOL}")
+    if not torch.equal(y, again):
+        raise AssertionError(f"qmm {name} M={x.shape[0]}: bits differ on repeat")
     return err, rel
 
 
 def qmm_phase(timer: Timer, gen) -> list[dict]:
     rows = []
     for name, kind, group, has_bias, n, k, ms in QMM_LAYOUTS:
-        qt = rand_qtensor(gen, n, k, kind, group, has_bias)
+        qt = rand_qtensor(gen, name, n, k, kind, group, has_bias)
         for m in ms:
             x = torch.randn((m, k), generator=gen, device="cuda")
             err, rel = qmm_check(name, qt, x)
             log(f"qmm {name} {n}x{k} M={m} check: max_abs_err {err:.3e} rel "
-                f"{rel:.3e} (tol {QMM_TOL})")
+                f"{rel:.3e} (tol {QMM_TOL}), equal bits on repeat")
             rows.append(dict(
                 kernel="qmm_nib4" if kind == "nib4" else "qmm_i8",
                 shape=f"{name} {n}x{k} M={m}", M=m, N=n, K=k, timed=False,
                 max_abs_err=err, max_rel_err=rel, tol_rel=QMM_TOL))
     for name, kind, group, has_bias, n, k in QMM_SHAPES:
-        qt = rand_qtensor(gen, n, k, kind, group, has_bias)
+        qt = rand_qtensor(gen, name, n, k, kind, group, has_bias)
         w_f32 = W.dequant(qt)  # the yardsticks' pre-dequantized weight
-        w_bf16 = w_f32.to(torch.bfloat16) if kind == "nib4" else None
+        w_bf16 = w_f32.to(torch.bfloat16)
         # one M per tile configuration of qmm.cu: decode (<= 8), a B=1
         # prefill bucket (9..64) and a grouped prefill (> 64)
         for m in (8, 32, 512):
             x = torch.randn((m, k), generator=gen, device="cuda")
             err, rel = qmm_check(name, qt, x)
-            # qmm_nib4 reads x as bf16 and multiplies on the tensor cores
-            # (bf16 rate), qmm_i8 reads f32 x and multiplies in f32
-            nib4 = kind == "nib4"
+            # the kernels read x as bf16, with a bias also its f32 group
+            # sums (one more product term a group), and multiply on the
+            # tensor cores (bf16 rate)
             ng = k // group
-            bytes_ = (x.numel() * (2 if nib4 else 4) + qt.nbytes + m * n * 4
-                      + (m * ng * 4 if nib4 and has_bias else 0))
-            flops = 2.0 * m * n * (k + (ng if nib4 and has_bias else 0))
-            t_ops = flops / (BF16_FLOPS_S if nib4 else F32_FLOPS_S)
+            bytes_ = (x.numel() * 2 + qt.nbytes + m * n * 4
+                      + (m * ng * 4 if has_bias else 0))
+            flops = 2.0 * m * n * (k + (ng if has_bias else 0))
+            t_ops = flops / BF16_FLOPS_S
             bound = max(bytes_ / HBM_BYTES_S, t_ops) * 1e3
+            xb = x.to(torch.bfloat16)
             row = dict(
-                kernel="qmm_nib4" if nib4 else "qmm_i8",
+                kernel="qmm_nib4" if kind == "nib4" else "qmm_i8",
                 shape=f"{name} {n}x{k} M={m}", M=m, N=n, K=k, timed=True,
                 max_abs_err=err, max_rel_err=rel, tol_rel=QMM_TOL,
                 ms=timer(lambda: DM.qmm_cuda(x, qt)),
                 plain_ms=timer(lambda: DM.qmatmul_twin(x, qt)),
                 library_ms=timer(lambda: torch.matmul(x, w_f32.t())),
+                library_bf16_ms=timer(lambda: torch.matmul(xb, w_bf16.t())),
                 bound_ms=bound,
                 bound_by="bytes" if bytes_ / HBM_BYTES_S >= t_ops
                 else "operations")
-            lib16 = ""
-            if nib4:
-                xb = x.to(torch.bfloat16)
-                row["library_bf16_ms"] = timer(
-                    lambda: torch.matmul(xb, w_bf16.t()))
-                lib16 = f" library_bf16_ms {row['library_bf16_ms']:.4f}"
             log(f"qmm {row['shape']}: max_abs_err {err:.3e} rel {rel:.3e} "
-                f"(tol {QMM_TOL}) kernel_ms {row['ms']:.4f} bound_ms "
-                f"{bound:.4f} ({row['bound_by']}) library_ms "
-                f"{row['library_ms']:.4f}{lib16} plain_ms {row['plain_ms']:.4f}")
+                f"(tol {QMM_TOL}, equal bits on repeat) kernel_ms "
+                f"{row['ms']:.4f} bound_ms {bound:.4f} ({row['bound_by']}) "
+                f"library_ms {row['library_ms']:.4f} library_bf16_ms "
+                f"{row['library_bf16_ms']:.4f} plain_ms {row['plain_ms']:.4f}")
             rows.append(row)
         del w_f32, w_bf16
     return rows
@@ -627,7 +640,7 @@ def twin_reordered(x, qt):
 def model_qmm_run(cfg, run) -> dict:
     """f16 through every kernel, against each kernel's plain twin.
 
-    qmm_nib4 rounds x to bf16 as the TPU kernel does, so a difference of
+    The qmm kernels round x to bf16 as the TPU kernels do, so a difference of
     one f32 rounding upstream flips some bf16 roundings downstream and
     grows layer by layer: two runs of the same bf16 function whose sums
     differ only in order part by far more than LOGIT_TOL at the output.
@@ -738,7 +751,7 @@ def model_phase(path: str) -> dict:
     se_mode = dict(ga_n=4, ga_w=64, rot_cache=False)
     out["qmm"] = model_qmm_run(cfg, run)
     # the attention kernels against attention_reference, the quantized
-    # products f32 (qmatmul_plain) in both runs: without qmm_nib4's bf16
+    # products f32 (qmatmul_plain) in both runs: without the qmm kernels' bf16
     # roundings nothing amplifies the sum-order differences, so the gate is
     # PR 3's. q8_0/q4_0 ("dt") runs quantize the same K/V rows of the first
     # layer in both runs; "+se": the rope attention kernels
@@ -1099,8 +1112,9 @@ def summarize(rows: list[dict], launches: dict) -> list[dict]:
 
 def ptxas_usage(text: str) -> list[tuple[str, str, str]]:
     """(kernel, registers, spill line) of each entry function in nvcc's
-    -Xptxas -v output; attn:: kernel names shown with their template
-    arguments (attn::prefill_kernel<kind, DT, ROT, DMAX>)."""
+    -Xptxas -v output; attn:: and qmm kernel names shown with their
+    template arguments (attn::prefill_kernel<kind, DT, ROT, DMAX>,
+    qmm_kernel<Cfg<format, BN, BM, ...>>)."""
     out, name, spills = [], "?", ""
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
@@ -1111,6 +1125,10 @@ def ptxas_usage(text: str) -> list[tuple[str, str, str]]:
                 args = ", ".join(v if t == "i" else ("true" if v == "1" else "false")
                                  for t, v in re.findall(r"L([ib])(\d+)E", k.group(2)))
                 name = f"attn::{k.group(1)}<{args}>"
+            k = re.search(r"qmm_kernelINS_3CfgINS_\d+(\w+?)E((?:Li\d+E)+)", name)
+            if k:
+                args = ", ".join(re.findall(r"Li(\d+)E", k.group(2)))
+                name = f"qmm_kernel<Cfg<{k.group(1)}, {args}>>"
             spills = ""
         elif "spill stores" in line:
             spills = line.strip()

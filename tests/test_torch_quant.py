@@ -11,11 +11,13 @@ kernels.dequant_matmul) against the JAX package.
   - qmatmul_plain against pallas_qmatmul in interpret mode for Q4_K and
     Q6_K at M in {1, 8, 16}: the TPU kernel rounds x and q*scale to bf16
     before its dot (2^-9 relative each), so 1e-2 of max |y|;
-  - qmm_nib4_plain, the plain twin of the CUDA kernel qmm_nib4, which
-    rounds as the TPU kernel does, against pallas_qmatmul in interpret
-    mode for every nib4 type (Q4_K, Q4_0, Q4_1, Q2_K) at M in {1, 8, 16}:
-    only the order of f32 sums and the TPU kernel's bf16x3 bias product
-    (exact to ~2^-17 of each term) differ, so 1e-4 of max |y|.
+  - qmm_nib4_plain and qmm_i8_plain, the plain twins of the CUDA kernels
+    qmm_nib4 and qmm_i8, which round as the TPU kernels do, against
+    pallas_qmatmul in interpret mode for every nib4 type (Q4_K, Q4_0,
+    Q4_1, Q2_K) and every i8 type (Q6_K, Q8_0, Q5_0, Q5_1, Q5_K, Q3_K) at
+    M in {1, 8, 16}: only the order of f32 sums and the TPU kernel's
+    bf16x3 bias product (exact to ~2^-17 of each term) differ, so 1e-4 of
+    max |y|.
 K = 3840 makes the JAX loader lane-pad every group cycle (ng = 120 or 240
 -> k_pad), so the k_pad path is exercised.
 """
@@ -42,8 +44,10 @@ torch.set_num_threads(2)
 TYPES = sorted(LAYOUTS, key=int)
 N, K = 8, 3840          # k_pad shape (dequant tests)
 NK, KK = 128, 512       # kernel-tileable shape (pallas interpret tests)
-KERNEL_TYPES = (GGMLType.Q4_K, GGMLType.Q6_K, GGMLType.Q4_0, GGMLType.Q4_1,
-                GGMLType.Q2_K)
+NIB4_TYPES = (GGMLType.Q4_K, GGMLType.Q4_0, GGMLType.Q4_1, GGMLType.Q2_K)
+I8_TYPES = (GGMLType.Q6_K, GGMLType.Q8_0, GGMLType.Q5_0, GGMLType.Q5_1,
+            GGMLType.Q5_K, GGMLType.Q3_K)
+KERNEL_TYPES = NIB4_TYPES + I8_TYPES
 
 
 @pytest.fixture(scope="module")
@@ -136,8 +140,8 @@ def test_qmatmul_plain_matches_xla(gguf, ty):
 PALLAS_CASES = [  # (type, port function, tolerance of max |y|)
     (GGMLType.Q4_K, TDM.qmatmul_plain, 1e-2),
     (GGMLType.Q6_K, TDM.qmatmul_plain, 1e-2),
-    *((ty, TDM.qmm_nib4_plain, 1e-4) for ty in (
-        GGMLType.Q4_K, GGMLType.Q4_0, GGMLType.Q4_1, GGMLType.Q2_K)),
+    *((ty, TDM.qmm_nib4_plain, 1e-4) for ty in NIB4_TYPES),
+    *((ty, TDM.qmm_i8_plain, 1e-4) for ty in I8_TYPES),
 ]
 
 
@@ -162,26 +166,25 @@ def test_qmatmul_plain_matches_pallas_interpret(gguf, ty, fn, tol, m):
                                atol=tol * np.abs(ref).max())
 
 
-@pytest.mark.parametrize("ty", [GGMLType.Q4_K, GGMLType.Q2_K, GGMLType.Q6_K],
-                         ids=lambda t: t.name)
+@pytest.mark.parametrize("ty", [GGMLType.Q4_K, GGMLType.Q2_K, GGMLType.Q6_K,
+                                GGMLType.Q5_K], ids=lambda t: t.name)
 def test_qmatmul_twin_routes_to_each_kernels_twin(gguf, ty):
-    """qmatmul_twin gives nib4 weights qmm_nib4_plain (bf16 roundings: not
-    qmatmul_plain's f32 product) and i8 weights qmatmul_plain, bit for bit;
-    qmatmul on a CPU tensor stays qmatmul_plain."""
+    """qmatmul_twin gives nib4 weights qmm_nib4_plain and i8 weights
+    qmm_i8_plain, bit for bit (bf16 roundings: not qmatmul_plain's f32
+    product, but within 1e-2 of it); qmatmul on a CPU tensor stays
+    qmatmul_plain."""
     tqt = carried(jax_qt(gguf, f"k.{ty.name}"))
     x = torch.from_numpy(np.random.default_rng(5).standard_normal(
         (3, KK)).astype(np.float32))
     twin = TDM.qmatmul_twin(x, tqt)
     plain = TDM.qmatmul_plain(x, tqt)
     torch.testing.assert_close(TDM.qmatmul(x, tqt), plain, rtol=0, atol=0)
-    if tqt.kind == "nib4":
-        torch.testing.assert_close(twin, TDM.qmm_nib4_plain(x, tqt),
-                                   rtol=0, atol=0)
-        assert not torch.equal(twin, plain)
-        torch.testing.assert_close(twin, plain, rtol=0,
-                                   atol=1e-2 * float(plain.abs().max()))
-    else:
-        torch.testing.assert_close(twin, plain, rtol=0, atol=0)
+    kernel_twin = (TDM.qmm_nib4_plain if tqt.kind == "nib4"
+                   else TDM.qmm_i8_plain)
+    torch.testing.assert_close(twin, kernel_twin(x, tqt), rtol=0, atol=0)
+    assert not torch.equal(twin, plain)
+    torch.testing.assert_close(twin, plain, rtol=0,
+                               atol=1e-2 * float(plain.abs().max()))
 
 
 def test_from_jax_params_refuses_packed_scales(gguf):
@@ -192,12 +195,14 @@ def test_from_jax_params_refuses_packed_scales(gguf):
                            types.SimpleNamespace(n_layer=0), "cpu")
 
 
-def test_cuda_wrapper_checks_before_launch():
+@pytest.mark.parametrize("kind", ["nib4", "i8"])
+def test_cuda_wrapper_checks_before_launch(kind):
     """The CUDA wrapper raises on what the kernel does not take (here: CPU
     tensors) before touching the kernel library."""
     x = torch.zeros((2, 64))
-    qt = TW.QTensor(qs=torch.zeros((4, 32), dtype=torch.uint8),
-                    scale=torch.ones((4, 2)), bias=None, kind="nib4",
+    qs = (torch.zeros((4, 32), dtype=torch.uint8) if kind == "nib4"
+          else torch.zeros((4, 64), dtype=torch.int8))
+    qt = TW.QTensor(qs=qs, scale=torch.ones((4, 2)), bias=None, kind=kind,
                     group=32, shape=(4, 64))
     with pytest.raises(ValueError, match="CUDA"):
         TDM.qmm_cuda(x, qt)

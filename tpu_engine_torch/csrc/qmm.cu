@@ -1,48 +1,53 @@
 // Fused dequantize + matmul for the natural-layout quantized weights of
 // tpu_engine_torch/model/weights.py:  y[M, N] = x[M, K] @ W[N, K]^T.
 //
-// qmm_nib4 (4-bit packed planes: Q4_K, Q4_0, Q4_1 at group 32, Q2_K at
-// group 16) replaces the TPU kernel tpu_engine/kernels/dequant_matmul.py
-// _nib4_kernel, and with it the measurement variants
-// scripts/qmm_variants.py _v2_kernel (the bias folded in as a group-sum
-// product) and _v3_kernel (a nibble turned into bf16 by a magic number).
-// It computes the TPU kernel's function, on the tensor cores:
+// Two entry points, one kernel template with a weight-format parameter:
+//   qmm_nib4 (4-bit packed planes: Q4_K, Q4_0, Q4_1 at group 32, Q2_K at
+//   group 16) replaces the TPU kernel tpu_engine/kernels/dequant_matmul.py
+//   _nib4_kernel, and with it the measurement variants
+//   scripts/qmm_variants.py _v2_kernel (the bias folded in as a group-sum
+//   product) and _v3_kernel (a nibble turned into bf16 by a magic number);
+//   qmm_i8 (int8 planes: Q8_0, Q5_0, Q5_1, Q5_K at group 32, Q6_K, Q3_K at
+//   group 16) replaces :_i8_kernel.
+// Both compute their TPU kernel's function, on the tensor cores:
 //   y[m, n] = sum_k xb[m, k] * bf16(q[n, k] * scale[n, k / G])   (f32 sums)
 //           + sum_g xsum[m, g] * bias[n, g]                      (bias only)
 // with xb = bf16(x) and xsum[m, g] = the f32 sum of xb over group g, both
 // made by the wrapper (kernels/dequant_matmul.py), as the JAX wrapper
-// makes them. The bias product takes the bf16x3 split of the TPU
+// makes them. q * scale is one f32 product of the exact integer, rounded
+// once, then to bf16. The bias product takes the bf16x3 split of the TPU
 // kernel's _bias_dot (xsum hi/lo x bias hi/lo, three products), exact to
 // about 2^-17 of each term.
 //
-// qmm_i8 (int8 planes: Q8_0, Q6_K, Q5_0, Q5_1, Q5_K, Q3_K) replaces
-// :_i8_kernel and still multiplies in f32 on the CUDA cores.
-//
-// What bounds qmm_nib4 on the H100: at decode (M <= 8) the bytes of the
-// weights (0.5 B of nibbles plus 0.25 B of f32 scale and bias per weight)
-// against 3.35 TB/s; at prefill (M = slots x bucket, up to thousands) the
-// bf16 tensor-core operations, 2 M N K against 989 TFLOP/s.
+// What bounds them on the H100: at decode (M <= 8) the bytes of the
+// weights (0.5 B of nibbles or 1 B of int8, plus 4 / G B of f32 scale and
+// as much bias per weight) against 3.35 TB/s; at prefill (M = slots x
+// bucket, up to thousands) the bf16 tensor-core operations, 2 M N K
+// against 989 TFLOP/s.
 // What the design does about it: a block owns BN weight rows and BM x rows
-// and walks K in KC-wide chunks. Each chunk's packed nibbles, f32 scales,
+// and walks K in KC-wide chunks. Each chunk's weight bytes, f32 scales,
 // bf16 x and, with a bias, the chunk's bias and xsum columns are copied
 // into shared memory by cp.async (16-byte pieces; 4-byte ones for the
 // per-group values), NST - 1 chunks ahead of the one in use, so nothing
 // the block reads waits on device memory once the pipe is full. The chunk
-// is dequantized shared memory to shared memory, four bytes (eight
-// weights) at a time: (v >> 4i & 0x000F000F) | 0x43004300 read as two
-// bf16 is 128 + q for two nibbles; widened to f32, one fma with the
-// group's f32 scale and -128 scale gives q * scale rounded once, then
-// bf16. The products run as bf16 nvcuda::wmma fragments with f32
-// accumulators, A and B swapped: weight rows are the fragment's M
-// dimension and x rows its N. The bias and xsum columns are split hi | lo
-// into a slab as they arrive; each full 16 groups take three more
-// fragment products into the same accumulators. At decode (M <= 8) the
-// m32n8k16 shape takes the eight x rows with no padding; a 32-row tile
-// gives N/32 blocks, and its eight warps split each chunk's K, reducing in
-// shared memory in a fixed order: a run gives the same bits every time.
-// Every ragged M and N edge is masked; K % 32 == 0 is the one
-// requirement. Later work: wgmma with TMA and warp specialisation at
-// prefill.
+// is dequantized shared memory to shared memory, eight weights at a time
+// (Nib4::dequant8, I8::dequant8: an exact integer by a magic number, times
+// the group's f32 scale, rounded once, then bf16). The products run as
+// bf16 nvcuda::wmma fragments with f32 accumulators, A and B swapped:
+// weight rows are the fragment's M dimension and x rows its N. The bias
+// and xsum columns are split hi | lo into a slab as they arrive; each full
+// 16 groups take three more fragment products into the same accumulators.
+// At decode (M <= 8) the m32n8k16 shape takes the eight x rows with no
+// padding; a 32-row tile gives N/32 blocks, and its eight warps split each
+// chunk's K, reducing in shared memory in a fixed order: a run gives the
+// same bits every time. Every ragged M and N edge is masked; K % 32 == 0
+// is the one requirement. An i8 chunk holds twice a nib4 chunk's bytes, so
+// each format has its own tile configurations (the Cfg lines below).
+// At decode the time follows the weight count, not the bytes, and a bias
+// adds about 40% (tools/qmm_ab.py --layouts): the per-weight work (the
+// dequant, the bf16 tile's round trip through shared memory, the
+// products), not the copies, holds it. Later work: that pass, and wgmma
+// with TMA and warp specialisation at prefill.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -51,134 +56,70 @@
 
 namespace {
 
-// ------------------------------------------------------- qmm_i8 (f32)
-template <int TM, int TN, int RM, int RN, int KC>
-__global__ void __launch_bounds__((TM / RM) * (TN / RN))
-qmm_i8_kernel(const float* __restrict__ x, const int8_t* __restrict__ qs,
-              const float* __restrict__ scale, const float* __restrict__ bias,
-              float* __restrict__ y, int M, int N, int K, int lg)
-{
-    constexpr int NT = (TM / RM) * (TN / RN);
-    constexpr int EPV = 16;        // int8 elements in one 16-byte vector
-    constexpr int VPR = KC / EPV;  // qs vectors per weight-tile row
-    static_assert(KC % EPV == 0 && KC % 4 == 0, "tile shape");
-    __shared__ float xs[TM][KC + 1];
-    __shared__ float ws[TN][KC + 1];
-
-    const int tid = threadIdx.x;
-    const int n0 = blockIdx.x * TN;
-    const int m0 = blockIdx.y * TM;
-    const int tx = tid % (TN / RN);
-    const int ty = tid / (TN / RN);
-    const int ng = K >> lg;  // groups per row
-
-    float acc[RM][RN];
-#pragma unroll
-    for (int i = 0; i < RM; i++)
-#pragma unroll
-        for (int j = 0; j < RN; j++) acc[i][j] = 0.f;
-
-    for (int k0 = 0; k0 < K; k0 += KC) {
-        // activation chunk [TM, KC]
-        for (int v = tid; v < TM * (KC / 4); v += NT) {
-            const int r = v / (KC / 4), c = (v % (KC / 4)) * 4;
-            const int m = m0 + r, k = k0 + c;
-            float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-            if (m < M && k < K)
-                val = *reinterpret_cast<const float4*>(x + (size_t)m * K + k);
-            xs[r][c] = val.x;
-            xs[r][c + 1] = val.y;
-            xs[r][c + 2] = val.z;
-            xs[r][c + 3] = val.w;
-        }
-        // weight chunk [TN, KC]: one 16-byte qs vector per step, dequantized
-        for (int v = tid; v < TN * VPR; v += NT) {
-            const int r = v / VPR, c = (v % VPR) * EPV;
-            const int n = n0 + r, k = k0 + c;
-            float* dst = &ws[r][c];
-            if (n < N && k < K) {
-                const uint4 raw = *reinterpret_cast<const uint4*>(
-                    qs + (size_t)n * K + k);
-                const uint32_t wv[4] = {raw.x, raw.y, raw.z, raw.w};
-                // a vector spans at most two groups (EPV <= 2 * group)
-                const int g0 = k >> lg, g1 = (k + EPV - 1) >> lg;
-                const float* sc = scale + (size_t)n * ng;
-                const float s0 = sc[g0], s1 = sc[g1];
-                float b0 = 0.f, b1 = 0.f;
-                if (bias != nullptr) {
-                    b0 = bias[(size_t)n * ng + g0];
-                    b1 = bias[(size_t)n * ng + g1];
-                }
-#pragma unroll
-                for (int e = 0; e < EPV; e++) {
-                    // byte e of the vector, from registers (constant indices)
-                    const uint32_t byte = (wv[e >> 2] >> (8 * (e & 3))) & 0xFFu;
-                    const float q = (float)(int8_t)byte;
-                    const bool first = ((k + e) >> lg) == g0;
-                    dst[e] = fmaf(q, first ? s0 : s1, first ? b0 : b1);
-                }
-            } else {
-#pragma unroll
-                for (int e = 0; e < EPV; e++) dst[e] = 0.f;
-            }
-        }
-        __syncthreads();
-#pragma unroll 4
-        for (int kk = 0; kk < KC; kk++) {
-            float a[RM], w[RN];
-#pragma unroll
-            for (int i = 0; i < RM; i++) a[i] = xs[ty + i * (TM / RM)][kk];
-#pragma unroll
-            for (int j = 0; j < RN; j++) w[j] = ws[tx + j * (TN / RN)][kk];
-#pragma unroll
-            for (int i = 0; i < RM; i++)
-#pragma unroll
-                for (int j = 0; j < RN; j++) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
-        }
-        __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < RM; i++) {
-        const int m = m0 + ty + i * (TM / RM);
-#pragma unroll
-        for (int j = 0; j < RN; j++) {
-            const int n = n0 + tx + j * (TN / RN);
-            if (m < M && n < N) y[(size_t)m * N + n] = acc[i][j];
-        }
-    }
-}
-
-int launch_i8(const float* x, const int8_t* qs, const float* scale,
-              const float* bias, float* y, int M, int N, int K, int lg,
-              cudaStream_t stream)
-{
-    if (M <= 8) {
-        // decode: all rows in one tile, every weight byte read once
-        dim3 grid((N + 31) / 32, 1);
-        qmm_i8_kernel<8, 32, 1, 1, 256><<<grid, 256, 0, stream>>>(
-            x, qs, scale, bias, y, M, N, K, lg);
-    } else if (M <= 64) {
-        dim3 grid((N + 63) / 64, (M + 63) / 64);
-        qmm_i8_kernel<64, 64, 4, 4, 32><<<grid, 256, 0, stream>>>(
-            x, qs, scale, bias, y, M, N, K, lg);
-    } else {
-        dim3 grid((N + 127) / 128, (M + 127) / 128);
-        qmm_i8_kernel<128, 128, 8, 8, 32><<<grid, 256, 0, stream>>>(
-            x, qs, scale, bias, y, M, N, K, lg);
-    }
-    return (int)cudaGetLastError();
-}
-
-// ---------------------------------------- qmm_nib4 (bf16 tensor cores)
 using namespace nvcuda;
 
-// One tile configuration: a block of BN weight rows x BM x rows; warps
-// tile it as (BN / WN) x (BM / WM) and split each KC-wide chunk's K
-// KSPLIT ways; NST shared-memory stages; FM x FN x 16 wmma fragments
-// (FM weight rows, FN x rows); at least MINB blocks per SM.
-template <int BN_, int BM_, int WN_, int WM_, int KSPLIT_, int KC_, int NST_,
-          int FM_, int FN_, int MINB_>
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi)
+{
+    __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// A weight format: WPB weights a byte; Word holds eight weights, and
+// dequant8 turns one into eight bf16 (element order) times the group's
+// scale s.
+struct Nib4 {
+    static constexpr int WPB = 2;
+    using Word = uint32_t;
+    // byte j: element 2j in the low nibble, 2j + 1 in the high one
+    static __device__ __forceinline__ uint4 dequant8(uint32_t v, float s)
+    {
+        const float c = -128.f * s;
+        float e[8];
+#pragma unroll
+        for (int i = 0; i < 4; i++) {
+            // t's low half is element i (bits 4i.., of byte 0 or 1), its
+            // high half element i + 4 (byte 2 or 3), each 128 + q as bf16;
+            // one fma with -128 s (exact) gives q * s rounded once
+            const uint32_t t = ((v >> (4 * i)) & 0x000F000Fu) | 0x43004300u;
+            e[i] = fmaf(__uint_as_float(t << 16), s, c);
+            e[i + 4] = fmaf(__uint_as_float(t & 0xFFFF0000u), s, c);
+        }
+        return make_uint4(pack_bf16(e[0], e[1]), pack_bf16(e[2], e[3]),
+                          pack_bf16(e[4], e[5]), pack_bf16(e[6], e[7]));
+    }
+};
+
+struct I8 {
+    static constexpr int WPB = 1;
+    using Word = uint2;
+    // eight signed bytes. byte ^ 0x80 is 128 + q; placed under the f32
+    // exponent of 2^23 it reads 2^23 + 128 + q, and subtracting 2^23 + 128
+    // leaves q exactly (bf16's 7 mantissa bits cannot hold it). Then one
+    // f32 multiply rounds q * s once; folding the subtraction into an fma
+    // with -(2^23 + 128) s would not, since that product is not exact
+    static __device__ __forceinline__ uint4 dequant8(uint2 v, float s)
+    {
+        const uint32_t w[2] = {v.x ^ 0x80808080u, v.y ^ 0x80808080u};
+        float e[8];
+#pragma unroll
+        for (int i = 0; i < 8; i++) {
+            // result bytes: byte i % 4 of w, 0x00, 0x00, 0x4B
+            const uint32_t t = __byte_perm(w[i >> 2], 0x4B000000u, 0x7440u | (i & 3));
+            e[i] = __fmul_rn(__uint_as_float(t) - 8388736.f, s);
+        }
+        return make_uint4(pack_bf16(e[0], e[1]), pack_bf16(e[2], e[3]),
+                          pack_bf16(e[4], e[5]), pack_bf16(e[6], e[7]));
+    }
+};
+
+// One tile configuration of one weight format F: a block of BN weight
+// rows x BM x rows; warps tile it as (BN / WN) x (BM / WM) and split each
+// KC-wide chunk's K KSPLIT ways; NST shared-memory stages; FM x FN x 16
+// wmma fragments (FM weight rows, FN x rows); at least MINB blocks per SM.
+template <class F_, int BN_, int BM_, int WN_, int WM_, int KSPLIT_, int KC_,
+          int NST_, int FM_, int FN_, int MINB_>
 struct Cfg {
+    using F = F_;
     static constexpr int BN = BN_, BM = BM_, WN = WN_, WM = WM_;
     static constexpr int KSPLIT = KSPLIT_, KC = KC_, NST = NST_;
     static constexpr int FM = FM_, FN = FN_, MINB = MINB_;
@@ -186,14 +127,15 @@ struct Cfg {
     static constexpr int NT = NWN * NWM * KSPLIT * 32;  // threads
     static constexpr int FI = WN / FM, FJ = WM / FN;    // fragments per warp
     static constexpr int KW = KC / KSPLIT;  // K of a chunk per warp
+    static constexpr int QROW = KC / F::WPB;  // weight bytes of a row's chunk
     static constexpr int LDW = KC + 8;      // bf16 row stride: weight tile, x
     static constexpr int GPC = KC / 16;     // group slots per row and chunk
     static constexpr int SW = GPC > 16 ? GPC : 16;  // bias slab columns
     static constexpr int LDB = SW + 8;      // bf16 row stride: bias slab
     static constexpr int LDO = BN + 4;      // f32 row stride: output
-    // a stage: nibbles [BN][KC/2], scales [BN][GPC] f32, bias and xsum
+    // a stage: weight bytes [BN][QROW], scales [BN][GPC] f32, bias and xsum
     // [BN + BM][GPC] f32, x [BM][LDW] bf16
-    static constexpr int SC_OFF = BN * KC / 2;
+    static constexpr int SC_OFF = BN * QROW;
     static constexpr int BX_OFF = SC_OFF + BN * GPC * 4;
     static constexpr int X_OFF = BX_OFF + (BN + BM) * GPC * 4;
     static constexpr int STAGE = X_OFF + BM * LDW * 2;
@@ -207,9 +149,11 @@ struct Cfg {
     static constexpr int SMEM = PIPE > OUT ? PIPE : OUT;
     static_assert(KC % 64 == 0 && KW % 16 == 0 && WN % FM == 0 &&
                   WM % FN == 0 && BN % WN == 0 && BM % WM == 0, "tile shape");
-    static_assert((BN * KC / 32) % NT == 0 && (BM * KC / 8) % NT == 0 &&
+    static_assert((BN * QROW / 16) % NT == 0 && (BM * KC / 8) % NT == 0 &&
                   (BN * GPC) % NT == 0 && (BN * KC / 8) % NT == 0 &&
                   ((BN + BM) * GPC) % NT == 0, "work per thread");
+    static_assert(X_OFF % 32 == 0 && STAGE % 32 == 0, "wmma alignment");
+    static_assert(SMEM <= 232448 / MINB - 1024, "shared memory");
 };
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok)
@@ -237,38 +181,14 @@ __device__ __forceinline__ void cp_async_wait()
     asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi)
-{
-    __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&h);
-}
-
-// Eight weights from the four packed bytes v (byte j: element 2j in the
-// low nibble, 2j + 1 in the high one), times the group scale s, as bf16
-// in element order.
-__device__ __forceinline__ uint4 dequant8(uint32_t v, float s)
-{
-    const float c = -128.f * s;
-    float e[8];
-#pragma unroll
-    for (int i = 0; i < 4; i++) {
-        // t's low half is element i (bits 4i.., of byte 0 or 1), its high
-        // half element i + 4 (byte 2 or 3), each 128 + q as bf16
-        const uint32_t t = ((v >> (4 * i)) & 0x000F000Fu) | 0x43004300u;
-        e[i] = fmaf(__uint_as_float(t << 16), s, c);
-        e[i + 4] = fmaf(__uint_as_float(t & 0xFFFF0000u), s, c);
-    }
-    return make_uint4(pack_bf16(e[0], e[1]), pack_bf16(e[2], e[3]),
-                      pack_bf16(e[4], e[5]), pack_bf16(e[6], e[7]));
-}
-
 template <class C>
 __global__ void __launch_bounds__(C::NT, C::MINB)
-qmm_nib4_kernel(const __nv_bfloat16* __restrict__ x,
-                const float* __restrict__ xsum, const uint8_t* __restrict__ qs,
-                const float* __restrict__ scale, const float* __restrict__ bias,
-                float* __restrict__ y, int M, int N, int K, int lg)
+qmm_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ xsum,
+           const uint8_t* __restrict__ qs, const float* __restrict__ scale,
+           const float* __restrict__ bias, float* __restrict__ y, int M, int N,
+           int K, int lg)
 {
+    using F = typename C::F;
     using FragA = wmma::fragment<wmma::matrix_a, C::FM, C::FN, 16,
                                  __nv_bfloat16, wmma::row_major>;
     using FragB = wmma::fragment<wmma::matrix_b, C::FM, C::FN, 16,
@@ -291,14 +211,15 @@ qmm_nib4_kernel(const __nv_bfloat16* __restrict__ x,
     auto load_chunk = [&](int c) {
         unsigned char* st = smem + (c % C::NST) * C::STAGE;
         const int k0 = c * C::KC, g0 = k0 >> lg;
-        constexpr int QP = C::KC / 32;  // 16-byte pieces of a nibble row
+        constexpr int QP = C::QROW / 16;  // 16-byte pieces of a row's chunk
+        constexpr int PW = 16 * F::WPB;   // weights in a piece
 #pragma unroll
         for (int j = 0; j < C::BN * QP / NT; j++) {
             const int i = tid + j * NT;
-            const int r = i / QP, k = k0 + (i % QP) * 32, n = n0 + r;
+            const int r = i / QP, k = k0 + (i % QP) * PW, n = n0 + r;
             const bool ok = n < N && k < K;
-            cp_async16(st + r * (C::KC / 2) + (i % QP) * 16,
-                       ok ? qs + (size_t)n * (K / 2) + k / 2 : qs, ok);
+            cp_async16(st + r * C::QROW + (i % QP) * 16,
+                       ok ? qs + (size_t)n * (K / F::WPB) + k / F::WPB : qs, ok);
         }
         float* sc = (float*)(st + C::SC_OFF);
 #pragma unroll
@@ -353,21 +274,22 @@ qmm_nib4_kernel(const __nv_bfloat16* __restrict__ x,
         cp_async_commit();
         const unsigned char* st = smem + (c % C::NST) * C::STAGE;
         const float* sc = (const float*)(st + C::SC_OFF);
-        constexpr int WPR = C::KC / 8;  // 4-byte words of a nibble row
+        using Word = typename F::Word;
+        constexpr int WPR = C::KC / 8;  // eight-weight words of a row's chunk
         constexpr int PER = C::BN * WPR / NT;
-        uint32_t v[PER];  // all loads first: stores to wt may alias them
+        Word v[PER];  // all loads first: stores to wt may alias them
         float s[PER];
 #pragma unroll
         for (int j = 0; j < PER; j++) {
             const int i = tid + j * NT;
             const int r = i / WPR, w = i % WPR;
-            v[j] = *(const uint32_t*)(st + r * (C::KC / 2) + w * 4);
+            v[j] = *(const Word*)(st + r * C::QROW + w * (int)sizeof(Word));
             s[j] = sc[r * C::GPC + ((w * 8) >> lg)];
         }
 #pragma unroll
         for (int j = 0; j < PER; j++) {
             const int i = tid + j * NT;
-            *(uint4*)(wt + (i / WPR) * C::LDW + (i % WPR) * 8) = dequant8(v[j], s[j]);
+            *(uint4*)(wt + (i / WPR) * C::LDW + (i % WPR) * 8) = F::dequant8(v[j], s[j]);
         }
         // the bias product's operands, split hi | lo into the slab at
         // column g % SW; a 16-group step goes to the tensor cores once its
@@ -474,61 +396,71 @@ qmm_nib4_kernel(const __nv_bfloat16* __restrict__ x,
     }
 }
 
-// decode (M <= 8): 32 weight rows at m32n8k16, 8 warps splitting each
-// 1024-wide chunk (512-byte runs of each weight row), two stages
-using DecCfg = Cfg<32, 8, 32, 8, 8, 1024, 2, 32, 8, 1>;
+// nib4. decode (M <= 8): 32 weight rows at m32n8k16, 8 warps splitting
+// each 1024-wide chunk (512-byte runs of each weight row), two stages
+using DecCfg = Cfg<Nib4, 32, 8, 32, 8, 8, 1024, 2, 32, 8, 1>;
 // M 9..64 (a slot's prefill bucket): 32 x 32 tiles, K split 4 ways
-using MidCfg = Cfg<32, 32, 32, 32, 4, 256, 3, 16, 16, 2>;
+using MidCfg = Cfg<Nib4, 32, 32, 32, 32, 4, 256, 3, 16, 16, 2>;
 // M > 64: 128 x 128 tiles, 8 warps of 64 x 32, 128-wide chunks
-using PreCfg = Cfg<128, 128, 64, 32, 1, 128, 2, 16, 16, 1>;
+using PreCfg = Cfg<Nib4, 128, 128, 64, 32, 1, 128, 2, 16, 16, 1>;
+// i8 (a chunk twice the bytes). decode: nib4's tile with 512-wide chunks
+// (512-byte runs), three stages (tools/qmm_ab.py: 1024-wide chunks, two
+// blocks an SM or 16-row tiles were no faster on the Q6_K pair)
+using DecCfgI8 = Cfg<I8, 32, 8, 32, 8, 8, 512, 3, 32, 8, 1>;
+// M 9..64: nib4's, two stages (three would not fit two blocks an SM)
+using MidCfgI8 = Cfg<I8, 32, 32, 32, 32, 4, 256, 2, 16, 16, 2>;
+// M > 64: nib4's (182 KB)
+using PreCfgI8 = Cfg<I8, 128, 128, 64, 32, 1, 128, 2, 16, 16, 1>;
 
 template <class C>
-int launch_nib4_cfg(const __nv_bfloat16* x, const float* xsum,
-                    const uint8_t* qs, const float* scale, const float* bias,
-                    float* y, int M, int N, int K, int lg, cudaStream_t stream)
+int launch_cfg(const void* x, const void* xsum, const void* qs,
+               const void* scale, const void* bias, void* y, int M, int N,
+               int K, int lg, void* stream)
 {
-    auto kern = qmm_nib4_kernel<C>;
+    auto kern = qmm_kernel<C>;
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
     if (err != cudaSuccess) return (int)err;
     dim3 grid((N + C::BN - 1) / C::BN, (M + C::BM - 1) / C::BM);
-    kern<<<grid, C::NT, C::SMEM, stream>>>(x, xsum, qs, scale, bias, y, M, N,
-                                           K, lg);
+    kern<<<grid, C::NT, C::SMEM, (cudaStream_t)stream>>>(
+        (const __nv_bfloat16*)x, (const float*)xsum, (const uint8_t*)qs,
+        (const float*)scale, (const float*)bias, (float*)y, M, N, K, lg);
     return (int)cudaGetLastError();
+}
+
+template <class Dec, class Mid, class Pre>
+int launch(const void* x, const void* xsum, const void* qs, const void* scale,
+           const void* bias, void* y, int M, int N, int K, int group,
+           void* stream)
+{
+    if (K % 32 || (group != 16 && group != 32) || (bias && !xsum))
+        return (int)cudaErrorInvalidValue;
+    const int lg = group == 16 ? 4 : 5;
+    if (M <= 8)
+        return launch_cfg<Dec>(x, xsum, qs, scale, bias, y, M, N, K, lg, stream);
+    if (M <= 64)
+        return launch_cfg<Mid>(x, xsum, qs, scale, bias, y, M, N, K, lg, stream);
+    return launch_cfg<Pre>(x, xsum, qs, scale, bias, y, M, N, K, lg, stream);
 }
 
 }  // namespace
 
 // x bf16 [M, K]; xsum f32 [M, K / group] (read only with a bias); qs
-// uint8 [N, K / 2]; scale, bias f32 [N, K / group] (bias may be null);
-// y f32 [M, N]. x and qs 16-byte aligned, K % 32 == 0, group 16 or 32.
+// uint8 [N, K / 2] (qmm_nib4) or int8 [N, K] (qmm_i8); scale, bias f32
+// [N, K / group] (bias may be null); y f32 [M, N]. x and qs 16-byte
+// aligned, K % 32 == 0, group 16 or 32.
 extern "C" int qmm_nib4(const void* x, const void* xsum, const void* qs,
                         const void* scale, const void* bias, void* y, int M,
                         int N, int K, int group, void* stream)
 {
-    if (K % 32 || (group != 16 && group != 32) || (bias && !xsum))
-        return (int)cudaErrorInvalidValue;
-    const int lg = group == 16 ? 4 : 5;
-    const auto xb = (const __nv_bfloat16*)x;
-    const auto q = (const uint8_t*)qs;
-    const auto st = (cudaStream_t)stream;
-    if (M <= 8)
-        return launch_nib4_cfg<DecCfg>(xb, (const float*)xsum, q, (const float*)scale,
-                                       (const float*)bias, (float*)y, M, N, K, lg, st);
-    if (M <= 64)
-        return launch_nib4_cfg<MidCfg>(xb, (const float*)xsum, q, (const float*)scale,
-                                       (const float*)bias, (float*)y, M, N, K, lg, st);
-    return launch_nib4_cfg<PreCfg>(xb, (const float*)xsum, q, (const float*)scale,
-                                   (const float*)bias, (float*)y, M, N, K, lg, st);
+    return launch<DecCfg, MidCfg, PreCfg>(x, xsum, qs, scale, bias, y, M, N,
+                                          K, group, stream);
 }
 
-// x f32 [M, K]; qs int8 [N, K]; scale, bias f32 [N, K / group] (bias may
-// be null); y f32 [M, N].
-extern "C" int qmm_i8(const void* x, const void* qs, const void* scale,
-                      const void* bias, void* y, int M, int N, int K,
-                      int group, void* stream)
+extern "C" int qmm_i8(const void* x, const void* xsum, const void* qs,
+                      const void* scale, const void* bias, void* y, int M,
+                      int N, int K, int group, void* stream)
 {
-    return launch_i8((const float*)x, (const int8_t*)qs, (const float*)scale,
-                     (const float*)bias, (float*)y, M, N, K,
-                     group == 16 ? 4 : 5, (cudaStream_t)stream);
+    return launch<DecCfgI8, MidCfgI8, PreCfgI8>(x, xsum, qs, scale, bias, y, M,
+                                                N, K, group, stream);
 }

@@ -4,20 +4,18 @@ They replace the TPU kernels tpu_engine/kernels/dequant_matmul.py
 _nib4_kernel and _i8_kernel (sources: csrc/qmm.cu); qmm_nib4 also takes
 the ideas of the measurement variants scripts/qmm_variants.py _v2_kernel
 and _v3_kernel. Both compute y[M, N] = x[M, K] @ dequant(W).T for a
-natural-layout QTensor (model/weights.py), each as its TPU kernel does:
-
-  - qmm_nib4 (Q4_K, Q4_0, Q4_1, Q2_K) on the tensor cores: x and
-    q * scale rounded to bf16, f32 sums, and the bias folded in as the
-    f32 group sums of the bf16 x times the bias (xsum, made here as the
-    JAX wrapper makes it). Its plain twin is qmm_nib4_plain.
-  - qmm_i8 (Q8_0, Q6_K, Q5_*, Q3_K) in f32 throughout. Its plain twin is
-    qmatmul_plain.
+natural-layout QTensor (model/weights.py) as their TPU kernels do, on the
+tensor cores: x and q * scale rounded to bf16, f32 sums, and the bias
+folded in as the f32 group sums of the bf16 x times the bias (xsum, made
+here as the JAX wrapper makes it). qmm_nib4 takes 4-bit planes (Q4_K,
+Q4_0, Q4_1, Q2_K), qmm_i8 int8 planes (Q8_0, Q6_K, Q5_*, Q3_K); one plain
+twin, qmatmul_twin (named qmm_nib4_plain and qmm_i8_plain after each
+kernel), computes that function for both.
 
 qmatmul_plain is f32 dequant + f32 matmul, the function of the JAX
 package's XLA path. It is what qmatmul runs on a CPU tensor, as the JAX
-package runs XLA's f32 product on the CPU and its bf16 Pallas kernel on
-the TPU. qmatmul_twin picks each weight's kernel twin (qmm_nib4_plain or
-qmatmul_plain): the plain run that computes what the kernels compute.
+package runs XLA's f32 product on the CPU and its bf16 Pallas kernels on
+the TPU.
 
 qmatmul() is the wrapper the model calls: on a CUDA tensor it launches the
 kernel (or raises); on a CPU tensor it runs qmatmul_plain.
@@ -45,10 +43,10 @@ def qmatmul_plain(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
     return y.reshape(*lead, n).to(x.dtype)
 
 
-def _nib4_operands(x2: torch.Tensor, qt: QTensor):
-    """qmm_nib4's activation operands, made as the JAX wrapper makes them:
-    xb = bf16(x) [M, K] and, with a bias, xsum [M, K/G] f32, the sum of xb
-    over each group (None without a bias)."""
+def _bf16_operands(x2: torch.Tensor, qt: QTensor):
+    """The kernels' activation operands, made as the JAX wrapper makes
+    them: xb = bf16(x) [M, K] and, with a bias, xsum [M, K/G] f32, the sum
+    of xb over each group (None without a bias)."""
     xb = x2.to(torch.bfloat16).contiguous()
     if qt.bias is None:
         return xb, None
@@ -57,12 +55,13 @@ def _nib4_operands(x2: torch.Tensor, qt: QTensor):
                          dtype=torch.float32)
 
 
-def qmm_nib4_plain(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
-    """Plain twin of qmm_nib4 (nib4 weights): sum_k bf16(x) bf16(q scale)
-    in f32, plus xsum @ bias.T. x [..., K]."""
+def qmatmul_twin(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
+    """The plain twin of the kernel qmatmul launches for qt on the card
+    (nib4 or i8 weights): sum_k bf16(x) bf16(q scale) in f32, plus
+    xsum @ bias.T. x [..., K]."""
     n, k = qt.shape
     lead = x.shape[:-1]
-    xb, xsum = _nib4_operands(x.reshape(-1, k), qt)
+    xb, xsum = _bf16_operands(x.reshape(-1, k), qt)
     w = dequant(replace(qt, bias=None)).to(torch.bfloat16)
     y = xb.float() @ w.float().t()
     if xsum is not None:
@@ -70,29 +69,25 @@ def qmm_nib4_plain(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
     return y.reshape(*lead, n).to(x.dtype)
 
 
-def qmatmul_twin(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
-    """The plain twin of the kernel qmatmul launches for qt on the card:
-    qmm_nib4_plain for nib4 weights, qmatmul_plain for i8."""
-    return (qmm_nib4_plain if qt.kind == "nib4" else qmatmul_plain)(x, qt)
+# each kernel's plain version: the two compute one function
+qmm_nib4_plain = qmm_i8_plain = qmatmul_twin
 
 
 def _fn(name: str):
-    """The launcher `name`: qmm_nib4 (x, xsum, qs, scale, bias, y, M, N, K,
-    group, stream) or qmm_i8 (x, qs, scale, bias, y, M, N, K, group,
-    stream)."""
+    """The launcher `name` (qmm_nib4 or qmm_i8): (x, xsum, qs, scale, bias,
+    y, M, N, K, group, stream)."""
     f = getattr(_build.load("qmm"), name)
     if f.argtypes is None:
-        n_ptr = 6 if name == "qmm_nib4" else 5
-        f.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 4
+        f.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
                       + [ctypes.c_void_p])
         f.restype = ctypes.c_int
     return f
 
 
 def qmm_cuda(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
-    """Launch qmm_nib4 / qmm_i8 on x [M, K] on the card (qmm_nib4 takes it
-    rounded to bf16, with its group sums; qmm_i8 as f32); returns a new
-    y [M, N] f32."""
+    """Launch qmm_nib4 / qmm_i8 on x [M, K] on the card (each takes x
+    rounded to bf16, with its group sums where there is a bias); returns a
+    new y [M, N] f32."""
     n, k = qt.shape
     if qt.kind not in ("nib4", "i8"):
         raise ValueError(f"qmm kernels take nib4/i8 weights, not {qt.kind}")
@@ -117,23 +112,19 @@ def qmm_cuda(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
                              "contiguous on the device")
     if not qt.qs.is_contiguous() or qt.qs.data_ptr() % 16:
         raise ValueError("qmm_cuda: qs must be contiguous and 16-byte aligned")
-    if qt.kind == "nib4":
-        xk, xsum = _nib4_operands(x, qt)
-    else:
-        xk, xsum = x.to(torch.float32).contiguous(), None
-    if xk.data_ptr() % 16:  # a view into the middle of a larger tensor
-        xk = xk.clone()
+    xb, xsum = _bf16_operands(x, qt)
+    if xb.data_ptr() % 16:  # a view into the middle of a larger tensor
+        xb = xb.clone()
     m = x.shape[0]
     y = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m == 0:
         return y
     P = _build.ptr
     name = "qmm_nib4" if qt.kind == "nib4" else "qmm_i8"
-    ops = [P(xk)] + ([None if xsum is None else P(xsum)]
-                     if qt.kind == "nib4" else [])
     rc = _fn(name)(
-        *ops, P(qt.qs), P(qt.scale), None if qt.bias is None else P(qt.bias),
-        P(y), m, n, k, qt.group, _build.stream_ptr(x.device))
+        P(xb), None if xsum is None else P(xsum), P(qt.qs), P(qt.scale),
+        None if qt.bias is None else P(qt.bias), P(y), m, n, k, qt.group,
+        _build.stream_ptr(x.device))
     _build.check(rc, name)
     LAUNCHES[name] += 1
     return y
