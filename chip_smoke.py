@@ -20,8 +20,18 @@ it over the cortex HTTP flow once per KV cache type and twice more with
 self-extend (grp_attn_n 4, grp_attn_w 128) at f16 and q8_0
 (/loadmodel -> 8 concurrent /v1/chat/completions, plus one that
 context-shifts at q8_0 -> /unloadmodel) and checks that each cycle
-launched every kernel of its path and no other attention kernel. Any
-failure raises and exits non-zero. The last lines are the kernel table as
+launched every kernel of its path and no other attention kernel. Then the
+embedding phase: qmm_nib4 / qmm_i8 at the encoders' shapes (N, K 768 and
+3072, M 8..2048) in the kernel phase; two full-width embedding models
+written here from seed 0 (bge-base widths at Q8_0 through
+tools/convert.hf_bert_to_gguf, nomic-embed-v1.5 widths at the Q4_K_M mix),
+each encoded at 8..n_ctx_train tokens through the kernels against the
+twins and the f32 plain run, then served (/loadmodel model_type
+"embedding" -> /v1/embeddings in four input forms -> a refused chat ->
+/unloadmodel: vectors equal to the direct encode bit for bit, no
+attention kernel launched); and the llama model loaded as an embedding
+model, its vector against forward_step's pooling. Any failure raises and
+exits non-zero. The last lines are the kernel table as
 one JSON object, the card's name and power limit from nvidia-smi, and
 {"ok": true, "device": {...}}. Per-shape details go to
 chiprun_out/chip_smoke.json.
@@ -38,6 +48,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 
 import numpy as np
@@ -118,6 +129,20 @@ QMM_SHAPES = [  # (tensor, kind, group, has_bias, N, K) at Llama-2-7B widths
 # every other layout of each kernel (quant/device_format.py LAYOUTS), and
 # a nib4 tensor without a bias, on wo's shape; and ragged ones (N, K and
 # M off every tile and chunk edge): correctness only
+# the embedding models' products (bert-base widths, E=768, F=3072): bge's
+# Q8_0, and nomic-embed's Q4_K with its Q6_K attn_v / ffn_down; at the
+# encoder's prompt buckets
+ENC_QMM = [
+    ("wq Q8_0", "i8", 32, False, 768, 768),
+    ("w_up Q8_0", "i8", 32, False, 3072, 768),
+    ("w_down Q8_0", "i8", 32, False, 768, 3072),
+    ("wv Q6_K", "i8", 16, False, 768, 768),
+    ("w_down Q6_K", "i8", 16, False, 768, 3072),
+    ("wq Q4_K", "nib4", 32, True, 768, 768),
+    ("w_up Q4_K", "nib4", 32, True, 3072, 768),
+    ("w_down Q4_K", "nib4", 32, True, 768, 3072),
+]
+ENC_MS = (8, 64, 512, 1024, 2048)
 QMM_LAYOUTS = [  # (tensor, kind, group, has_bias, N, K, Ms)
     ("wo Q4_0", "nib4", 32, True, 4096, 4096, (8, 32, 512)),
     ("wo Q4_1", "nib4", 32, True, 4096, 4096, (8, 32, 512)),
@@ -149,6 +174,40 @@ def qmm_check(name, qt, x) -> tuple[float, float]:
     return err, rel
 
 
+def qmm_timed_row(timer: Timer, name, qt, x, w_f32, w_bf16) -> dict:
+    """qmm_check on x, then the kernel's, its twin's and cuBLAS's times
+    (f32 and bf16 on the pre-dequantized weight) beside the bound."""
+    m, (n, k) = x.shape[0], qt.shape
+    err, rel = qmm_check(name, qt, x)
+    # the kernels read x as bf16, with a bias also its f32 group sums (one
+    # more product term a group), and multiply on the tensor cores (bf16
+    # rate)
+    has_bias = qt.bias is not None
+    ng = k // qt.group
+    bytes_ = (x.numel() * 2 + qt.nbytes + m * n * 4
+              + (m * ng * 4 if has_bias else 0))
+    flops = 2.0 * m * n * (k + (ng if has_bias else 0))
+    t_ops = flops / BF16_FLOPS_S
+    bound = max(bytes_ / HBM_BYTES_S, t_ops) * 1e3
+    xb = x.to(torch.bfloat16)
+    row = dict(
+        kernel="qmm_nib4" if qt.kind == "nib4" else "qmm_i8", tensor=name,
+        shape=f"{name} {n}x{k} M={m}", M=m, N=n, K=k, timed=True,
+        max_abs_err=err, max_rel_err=rel, tol_rel=QMM_TOL,
+        ms=timer(lambda: DM.qmm_cuda(x, qt)),
+        plain_ms=timer(lambda: DM.qmatmul_twin(x, qt)),
+        library_ms=timer(lambda: torch.matmul(x, w_f32.t())),
+        library_bf16_ms=timer(lambda: torch.matmul(xb, w_bf16.t())),
+        bound_ms=bound,
+        bound_by="bytes" if bytes_ / HBM_BYTES_S >= t_ops else "operations")
+    log(f"qmm {row['shape']}: max_abs_err {err:.3e} rel {rel:.3e} "
+        f"(tol {QMM_TOL}, equal bits on repeat) kernel_ms "
+        f"{row['ms']:.4f} bound_ms {bound:.4f} ({row['bound_by']}) "
+        f"library_ms {row['library_ms']:.4f} library_bf16_ms "
+        f"{row['library_bf16_ms']:.4f} plain_ms {row['plain_ms']:.4f}")
+    return row
+
+
 def qmm_phase(timer: Timer, gen) -> list[dict]:
     rows = []
     for name, kind, group, has_bias, n, k, ms in QMM_LAYOUTS:
@@ -162,43 +221,20 @@ def qmm_phase(timer: Timer, gen) -> list[dict]:
                 kernel="qmm_nib4" if kind == "nib4" else "qmm_i8",
                 shape=f"{name} {n}x{k} M={m}", M=m, N=n, K=k, timed=False,
                 max_abs_err=err, max_rel_err=rel, tol_rel=QMM_TOL))
-    for name, kind, group, has_bias, n, k in QMM_SHAPES:
-        qt = rand_qtensor(gen, name, n, k, kind, group, has_bias)
-        w_f32 = W.dequant(qt)  # the yardsticks' pre-dequantized weight
-        w_bf16 = w_f32.to(torch.bfloat16)
-        # one M per tile configuration of qmm.cu: decode (<= 8), a B=1
-        # prefill bucket (9..64) and a grouped prefill (> 64)
-        for m in (8, 32, 512):
-            x = torch.randn((m, k), generator=gen, device="cuda")
-            err, rel = qmm_check(name, qt, x)
-            # the kernels read x as bf16, with a bias also its f32 group
-            # sums (one more product term a group), and multiply on the
-            # tensor cores (bf16 rate)
-            ng = k // group
-            bytes_ = (x.numel() * 2 + qt.nbytes + m * n * 4
-                      + (m * ng * 4 if has_bias else 0))
-            flops = 2.0 * m * n * (k + (ng if has_bias else 0))
-            t_ops = flops / BF16_FLOPS_S
-            bound = max(bytes_ / HBM_BYTES_S, t_ops) * 1e3
-            xb = x.to(torch.bfloat16)
-            row = dict(
-                kernel="qmm_nib4" if kind == "nib4" else "qmm_i8",
-                shape=f"{name} {n}x{k} M={m}", M=m, N=n, K=k, timed=True,
-                max_abs_err=err, max_rel_err=rel, tol_rel=QMM_TOL,
-                ms=timer(lambda: DM.qmm_cuda(x, qt)),
-                plain_ms=timer(lambda: DM.qmatmul_twin(x, qt)),
-                library_ms=timer(lambda: torch.matmul(x, w_f32.t())),
-                library_bf16_ms=timer(lambda: torch.matmul(xb, w_bf16.t())),
-                bound_ms=bound,
-                bound_by="bytes" if bytes_ / HBM_BYTES_S >= t_ops
-                else "operations")
-            log(f"qmm {row['shape']}: max_abs_err {err:.3e} rel {rel:.3e} "
-                f"(tol {QMM_TOL}, equal bits on repeat) kernel_ms "
-                f"{row['ms']:.4f} bound_ms {bound:.4f} ({row['bound_by']}) "
-                f"library_ms {row['library_ms']:.4f} library_bf16_ms "
-                f"{row['library_bf16_ms']:.4f} plain_ms {row['plain_ms']:.4f}")
-            rows.append(row)
-        del w_f32, w_bf16
+    # one M per tile configuration of qmm.cu: decode (<= 8), a B=1 prefill
+    # bucket (9..64) and a grouped prefill (> 64); at the encoders' widths
+    # (ENC_QMM) their buckets 8..2048
+    for shapes, ms, encoder in ((QMM_SHAPES, (8, 32, 512), False),
+                                (ENC_QMM, ENC_MS, True)):
+        for name, kind, group, has_bias, n, k in shapes:
+            qt = rand_qtensor(gen, name, n, k, kind, group, has_bias)
+            w_f32 = W.dequant(qt)  # the yardsticks' pre-dequantized weight
+            w_bf16 = w_f32.to(torch.bfloat16)
+            for m in ms:
+                x = torch.randn((m, k), generator=gen, device="cuda")
+                rows.append(dict(qmm_timed_row(timer, name, qt, x, w_f32,
+                                               w_bf16), encoder=encoder))
+            del w_f32, w_bf16
     return rows
 
 
@@ -637,6 +673,50 @@ def twin_reordered(x, qt):
             + DM.qmatmul_twin(x[..., :h], qt_cols(qt, 0, h)))
 
 
+def shadowed_qmatmul(shadow: dict):
+    """The kernels' qmatmul, each call also computed by the kernel's twin
+    on the same input: shadow counts the calls and keeps the largest
+    relative error (max |kernel - twin| / max |twin|)."""
+    shadow.update(calls=0, max_rel=0.0)
+
+    def shadowed(x, qt):
+        y = DM.qmatmul(x, qt)
+        ref = DM.qmatmul_twin(x, qt)
+        rel = float((y - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
+        shadow["calls"] += 1
+        shadow["max_rel"] = max(shadow["max_rel"], rel)
+        return y
+    return shadowed
+
+
+def zero_launches() -> None:
+    for counts in (DM.LAUNCHES, FA.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def start_server():
+    """The port's HTTP server on a free localhost port, in a thread:
+    (server, thread, base URL)."""
+    from tpu_engine_torch.api.server import make_server
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    srv = make_server("127.0.0.1", port, device="cuda")
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    return srv, th, f"http://127.0.0.1:{port}"
+
+
+def stop_server(srv, th) -> None:
+    srv.shutdown()
+    srv.server_close()
+    srv.registry.unload_all()
+    th.join(timeout=30)
+
+
 def model_qmm_run(cfg, run) -> dict:
     """f16 through every kernel, against each kernel's plain twin.
 
@@ -652,16 +732,8 @@ def model_qmm_run(cfg, run) -> dict:
     max |dlogit| to twice the twin run's own against a run of
     twin_reordered (the same function, its sums in another order), or
     LOGIT_TOL if that is larger."""
-    shadow = {"calls": 0, "max_rel": 0.0}
-
-    def shadowed(x, qt):
-        y = DM.qmatmul(x, qt)
-        ref = DM.qmatmul_twin(x, qt)
-        rel = float((y - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
-        shadow["calls"] += 1
-        shadow["max_rel"] = max(shadow["max_rel"], rel)
-        return y
-
+    shadow = {}
+    shadowed = shadowed_qmatmul(shadow)
     mode = dict(rot_cache=True)
     before = {**DM.LAUNCHES, **FA.LAUNCHES}
     W.set_qmatmul_impl(shadowed)
@@ -861,21 +933,13 @@ def _stream(base, body, timeout=900.0):
 
 
 def server_phase(path: str, smi: str) -> dict:
-    from tpu_engine_torch.api.server import make_server
     from tpu_engine_torch.gguf.reader import read_gguf
     from tpu_engine_torch.tokenizer import Tokenizer
 
     g = read_gguf(path)
     tok = Tokenizer.from_gguf_metadata(g.metadata)
     g.close()
-    s = socket.socket()
-    s.bind(("127.0.0.1", 0))
-    port = s.getsockname()[1]
-    s.close()
-    srv = make_server("127.0.0.1", port, device="cuda")
-    th = threading.Thread(target=srv.serve_forever, daemon=True)
-    th.start()
-    base = f"http://127.0.0.1:{port}"
+    srv, th, base = start_server()
     # count the engine's context shifts (kvcache.shift_compact calls), the
     # cache they ran on and whether they re-roped K (rope is None: K
     # stored unrotated, moved as it is)
@@ -907,10 +971,7 @@ def server_phase(path: str, smi: str) -> dict:
                 f"no re-rope) {shifts}")
     finally:
         OPS.shift_compact = real_shift
-        srv.shutdown()
-        srv.server_close()
-        srv.registry.unload_all()
-        th.join(timeout=30)
+        stop_server(srv, th)
     return out
 
 
@@ -925,10 +986,7 @@ def server_cycle(srv, base, path, tok, label, smi) -> dict:
     n_tokens = [20, 60, 110, 160, 210, 270, 330, 400]  # prompt sizes
     if cache_type == "q8_0":
         n_tokens.append(480)
-    for k in DM.LAUNCHES:
-        DM.LAUNCHES[k] = 0
-    for k in FA.LAUNCHES:
-        FA.LAUNCHES[k] = 0
+    zero_launches()
     t0 = time.time()
     status, resp = _post(base, "/loadmodel", {
         "llama_model_path": path, "model": "smoke", "n_parallel": 8,
@@ -1062,6 +1120,300 @@ def _chat_body(tok, i: int, n_tokens: int) -> dict:
     return body(n)
 
 
+# ------------------------------------------------------------- embeddings
+ENC_COS = 0.999    # cosine of a kernel encode against the f32 plain one
+ENC_TOL = 2e-3     # max |dv| / max |v| floor of the kernel-vs-twin bound
+NORM_TOL = 1e-4    # | ||v|| - 1 | of a served vector
+ENC_MODELS = [  # (label, tools/encoder_gguf.py preset, level, arch)
+    ("bge-base Q8_0", "bge-base", "q8_0", "bert"),
+    ("nomic-embed-v1.5 Q4_K_M", "nomic-embed-v1.5", "q4_k_m", "nomic-bert"),
+]
+
+
+def enc_products(lm) -> dict:
+    """Quantized products an encode launches, by kernel (one a projection
+    a layer; the embedding lookup dequantizes rows without a kernel)."""
+    out = {"qmm_nib4": 0, "qmm_i8": 0}
+    for lw in lm.weights["layers"]:
+        for v in lw.values():
+            if isinstance(v, W.QTensor) and v.kind != "dense":
+                out["qmm_nib4" if v.kind == "nib4" else "qmm_i8"] += 1
+    return out
+
+
+def encode_phase(lm, label: str, timer: Timer) -> dict:
+    """Encodes of 8, 128, 512 and n_ctx_train tokens through the kernels,
+    each quantized product also computed by its twin on the same input
+    (<= QMM_TOL); the vector held to the twins' run within twice the
+    twins' own spread under reordered sums (or ENC_TOL of max |v|), to
+    the f32 plain run by cosine (>= ENC_COS), finite; an encode launches
+    its products on qmm_nib4 / qmm_i8 and no attention kernel. Times: the
+    kernel encode and the f32 plain one (tools/timing.py)."""
+    from tpu_engine_torch.model.bert import encode
+
+    cfg, dev = lm.cfg, lm.device
+    want = enc_products(lm)
+    rng = np.random.default_rng(11)
+    out = {}
+    for n in sorted({min(n, cfg.n_ctx_train) for n in (8, 128, 512)}
+                    | {cfg.n_ctx_train}):
+        ids = [2] + rng.integers(5, cfg.n_vocab, n - 2).tolist() + [3]
+        toks = torch.tensor([ids], dtype=torch.int32, device=dev)
+        nv = torch.tensor([n], dtype=torch.int32, device=dev)
+
+        def run():
+            return encode(lm.weights, toks, nv, cfg)
+
+        shadow = {}
+        shadowed = shadowed_qmatmul(shadow)
+        vecs = {}
+        before = {**DM.LAUNCHES, **FA.LAUNCHES}
+        try:
+            for name, fn in (("kernel", shadowed), ("twin", DM.qmatmul_twin),
+                             ("reordered", twin_reordered),
+                             ("plain", DM.qmatmul_plain)):
+                W.set_qmatmul_impl(fn)
+                vecs[name] = run()[0].float()
+                if name == "kernel":
+                    went = {k: v - before[k] for k, v in
+                            {**DM.LAUNCHES, **FA.LAUNCHES}.items()}
+        finally:
+            W.set_qmatmul_impl(None)
+        launched = {k: v for k, v in went.items() if v}
+        if launched != {k: v for k, v in want.items() if v}:
+            raise AssertionError(f"encode {label} n={n}: launched {launched}, "
+                                 f"want {want} and no attention kernel")
+        k, t = vecs["kernel"], vecs["twin"]
+        vmax = float(t.abs().max())
+        d = float((k - t).abs().max()) / vmax
+        floor = float((vecs["reordered"] - t).abs().max()) / vmax
+        bound = max(2 * floor, ENC_TOL)
+        p = vecs["plain"]
+        cos = float(torch.dot(k, p) / (k.norm() * p.norm()))
+        ms = timer(run)
+        W.set_qmatmul_impl(DM.qmatmul_plain)
+        try:
+            plain_ms = timer(run)
+        finally:
+            W.set_qmatmul_impl(None)
+        log(f"encode {label} n={n}: {shadow['calls']} quantized products "
+            f"{want}, max rel err against the twin on the same input "
+            f"{shadow['max_rel']:.3e} (tol {QMM_TOL}); vector against the "
+            f"twins' run max |dv| {d:.3e} of max |v| {vmax:.4f} (bound "
+            f"{bound:.3e}: twice the reordered twins' {floor:.3e}, or "
+            f"{ENC_TOL}); cosine against f32 plain {cos:.6f} (need >= "
+            f"{ENC_COS}); encode_ms {ms:.3f} plain_ms {plain_ms:.3f}")
+        if (shadow["max_rel"] > QMM_TOL or d > bound or cos < ENC_COS
+                or not all(torch.isfinite(v).all() for v in vecs.values())):
+            raise AssertionError(f"encode {label} n={n}: kernels disagree")
+        out[n] = dict(products=want, calls=shadow["calls"],
+                      max_rel_per_call=shadow["max_rel"], rel_dv=d,
+                      rel_dv_reordered=floor, bound=bound, cosine_plain=cos,
+                      ms=ms, plain_ms=plain_ms)
+    return out
+
+
+def _post_status(base, path, body):
+    """_post that returns an HTTP error's status and body too."""
+    try:
+        return _post(base, path, body)
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def embed_server_cycle(srv, base, path: str, label: str) -> dict:
+    """/loadmodel with model_type "embedding" -> /v1/embeddings in the four
+    input forms (one prompt past n_ctx), then eight at once ->
+    /v1/chat/completions (refused) -> /unloadmodel, counts zeroed just
+    before /loadmodel and read just after /unloadmodel. Then, off the
+    counts, each served vector against the engine's direct encode of the
+    same ids: equal bits, unit norm. Launches: the warm-up and each
+    prompt's products, no attention."""
+    from tpu_engine_torch.serve.encoder import EncoderEngine
+
+    zero_launches()
+    t0 = time.time()
+    status, resp = _post(base, "/loadmodel", {
+        "llama_model_path": path, "model": "embed", "model_type": "embedding",
+        "ctx_len": 4096})
+    if status != 200:
+        raise AssertionError(f"/loadmodel {label}: {status} {resp}")
+    t_load = time.time() - t0
+    engine = srv.registry.get("embed").engine
+    if not isinstance(engine, EncoderEngine) or engine.device.type != "cuda":
+        raise AssertionError(f"{label}: served by {engine}")
+    n_ctx = engine.n_ctx
+    rng = np.random.default_rng(13)
+    words = "the quick brown fox jumps over the lazy dog hello world"
+
+    def ids(n):
+        return [2] + rng.integers(5, engine.cfg.n_vocab, n - 2).tolist() + [3]
+
+    inputs = {"string": words,
+              "strings": ["hello world", " ".join([words] * 100)],
+              "tokens": ids(100),
+              "token_lists": [ids(8), ids(300), ids(n_ctx + 40)]}
+    served, t_req = [], {}
+    for form, inp in inputs.items():
+        t0 = time.time()
+        status, resp = _post(base, "/v1/embeddings",
+                             {"model": "embed", "input": inp})
+        t_req[form] = time.time() - t0
+        prompts = inp if form in ("strings", "token_lists") else [inp]
+        if status != 200 or len(resp["data"]) != len(prompts):
+            raise AssertionError(f"{label} /v1/embeddings {form}: {status}")
+        served += [(form, p, d["embedding"]) for p, d in zip(prompts, resp["data"])]
+    # eight concurrent requests: they arrive together, one server thread
+    # each, and the engine's _encode_lock serialises their encodes
+    burst = [ids(n) for n in (8, 16, 40, 64, 100, 200, 300, 500)]
+    results = [None] * len(burst)
+
+    def worker(i):
+        results[i] = _post(base, "/v1/embeddings",
+                           {"model": "embed", "input": burst[i]})
+
+    t0 = time.time()
+    ths = [threading.Thread(target=worker, args=(i,)) for i in range(len(burst))]
+    for t in ths:
+        t.start()
+    for t in ths:
+        t.join()
+    t_req["burst of 8"] = time.time() - t0
+    for prompt, res in zip(burst, results):
+        if res is None or res[0] != 200:
+            raise AssertionError(f"{label} concurrent /v1/embeddings: {res}")
+        served.append(("concurrent", prompt, res[1]["data"][0]["embedding"]))
+    status, resp = _post_status(base, "/v1/chat/completions", {
+        "model": "embed", "messages": [{"role": "user", "content": "hi"}]})
+    if status != 500 or "embeddings only" not in resp.get("error", ""):
+        raise AssertionError(f"{label}: chat on an embedding model gave "
+                             f"{status} {resp}")
+    status, resp = _post(base, "/unloadmodel", {"model": "embed"})
+    if status != 200:
+        raise AssertionError(f"/unloadmodel {label}: {status} {resp}")
+    launches = {**DM.LAUNCHES, **FA.LAUNCHES}
+    per = enc_products(engine.lm)
+    want = {k: per.get(k, 0) * (1 + len(served)) for k in launches}
+    log(f"server {label}: /loadmodel {t_load:.1f}s (load + warm-up); "
+        f"/v1/embeddings {', '.join(f'{f} {t:.3f}s' for f, t in t_req.items())}"
+        f"; launches over the cycle {launches} (want {want}: the warm-up and "
+        f"{len(served)} encodes)")
+    if launches != want:
+        raise AssertionError(f"{label}: launches {launches}, want {want}")
+    lengths = []
+    for form, prompt, vec in served:
+        p_ids = engine.prompt_ids(prompt)
+        ref = engine.encode_ids(p_ids)
+        ref = ref / float(np.linalg.norm(ref))
+        got = np.asarray(vec, np.float64).astype(np.float32)
+        norm = float(np.linalg.norm(np.asarray(vec, np.float64)))
+        lengths.append(len(p_ids))
+        if not np.array_equal(got, ref) or abs(norm - 1.0) > NORM_TOL:
+            raise AssertionError(
+                f"{label} {form} ({len(p_ids)} tokens): served vector differs "
+                f"from the direct encode by {np.abs(got - ref).max():.3e}, "
+                f"norm {norm:.6f}")
+    if max(lengths) != n_ctx:
+        raise AssertionError(f"{label}: no prompt reached n_ctx {n_ctx}")
+    log(f"server {label}: {len(served)} vectors ({lengths} tokens; the last "
+        f"cut to n_ctx {n_ctx}) equal the direct encodes bit for bit, norms "
+        f"within {NORM_TOL} of 1; chat refused with 500")
+    del engine
+    return dict(launches=launches, load_s=t_load, request_s=t_req,
+                prompt_tokens=lengths)
+
+
+def causal_embed_cycle(srv, base, path: str) -> dict:
+    """The llama smoke model loaded with model_type "embedding" (served by
+    InferenceEngine's embedding path, no warm-up): one /v1/embeddings
+    vector against forward_step's pooling of the same ids, padded to the
+    engine's prefill bucket, on a fresh cache of the engine's kind."""
+    from tpu_engine_torch.kvcache.cache import new_cache
+
+    dev = "cuda"
+    zero_launches()
+    status, resp = _post(base, "/loadmodel", {
+        "llama_model_path": path, "model": "smoke-embed",
+        "model_type": "embedding", "ctx_len": 512, "n_parallel": 1})
+    if status != 200:
+        raise AssertionError(f"/loadmodel llama embedding: {status} {resp}")
+    entry = srv.registry.get("smoke-embed")
+    engine, lm, cfg = entry.engine, entry.model, entry.model.cfg
+    del entry
+    ids = np.random.default_rng(17).integers(300, cfg.n_vocab, 100).tolist()
+    status, resp = _post(base, "/v1/embeddings",
+                         {"model": "smoke-embed", "input": ids})
+    if status != 200:
+        raise AssertionError(f"llama /v1/embeddings: {status} {resp}")
+    status, _ = _post(base, "/unloadmodel", {"model": "smoke-embed"})
+    launches = {**DM.LAUNCHES, **FA.LAUNCHES}
+    kind = engine.ops.cache.kind
+    bucket = next(b for b in engine.prefill_buckets if b >= len(ids))
+    cache = new_cache(cfg.n_layer, 1, 512, cfg.n_kv_head, cfg.head_dim,
+                      kind=kind, layout=default_layout(kind, cfg.head_dim),
+                      device=dev)
+    _, _, pooled = LL.forward_step(
+        lm.weights, cache,
+        torch.tensor([ids + [0] * (bucket - len(ids))], dtype=torch.int32,
+                     device=dev),
+        torch.zeros((1,), dtype=torch.int32, device=dev),
+        torch.ones((1,), dtype=torch.bool, device=dev), cfg,
+        n_valid=torch.tensor([len(ids)], dtype=torch.int32, device=dev),
+        collect_hidden=cfg.pooling_type, rot_cache=engine.ops.rot_cache)
+    ref = pooled[0].cpu().numpy().astype(np.float64)
+    ref = ref / np.linalg.norm(ref)
+    got = np.asarray(resp["data"][0]["embedding"])
+    d = float(np.abs(got - ref).max())
+    log(f"server llama embedding (pooling {cfg.pooling_type}, {kind} cache, "
+        f"bucket {bucket}): launches {launches}; served vector against "
+        f"forward_step's pooling max |dv| {d:.3e} (tol {QMM_TOL}), equal bits "
+        f"{bool(np.array_equal(got, ref))}, norm {np.linalg.norm(got):.6f}")
+    if (status != 200 or d > QMM_TOL
+            or not all(launches[k] for k in ("qmm_nib4", "qmm_i8"))):
+        raise AssertionError("llama embedding cycle failed")
+    return dict(launches=launches, max_dv=d, bucket=bucket)
+
+
+def embedding_phase(tmp: str, smi: str, llama_path: str, timer: Timer) -> dict:
+    """For each embedding model (ENC_MODELS, written here at full width from
+    seed 0): encode_phase on the card, then embed_server_cycle; then the
+    llama smoke model's causal embedding cycle."""
+    from tpu_engine_torch.model.loader import load_model
+    from tpu_engine_torch.tools import encoder_gguf as EG
+
+    srv, th, base = start_server()
+    out = {}
+    try:
+        for label, preset, level, arch in ENC_MODELS:
+            path = os.path.join(tmp, f"{preset}-{level}.gguf")
+            t0 = time.time()
+            if arch == "bert":  # CLS pooling, as bge
+                EG.build_bert_gguf(path, preset, level, seed=0, pooling_type=2)
+            else:
+                EG.build_nomic_bert_gguf(path, preset, level, seed=0)
+            log(f"embedding: wrote {path} ({os.path.getsize(path) / 1e6:.1f} "
+                f"MB, {label}, full depth) in {time.time() - t0:.1f}s")
+            lm = load_model(path, device="cuda")
+            L, E, H, F, V, ctx = EG.PRESETS[preset]
+            if (lm.cfg.arch, lm.cfg.n_layer, lm.cfg.n_embd, lm.cfg.n_ff,
+                    lm.cfg.n_vocab, lm.cfg.n_ctx_train) != (arch, L, E, F, V, ctx):
+                raise AssertionError(f"{label}: loaded {lm.cfg}")
+            res = {"pooling": lm.cfg.pooling_type,
+                   "products": enc_products(lm),
+                   "encode": encode_phase(lm, label, timer)}
+            del lm
+            res["server"] = embed_server_cycle(srv, base, path, label)
+            out[label] = res
+        out["llama causal"] = causal_embed_cycle(srv, base, llama_path)
+    finally:
+        stop_server(srv, th)
+    log(f"embedding: per-bucket encode ms (kernels / f32 plain) [{smi}]: " +
+        "; ".join(f"{lab} " + ", ".join(
+            f"n={n} {r['ms']:.3f}/{r['plain_ms']:.3f}"
+            for n, r in out[lab]["encode"].items()) for lab, *_ in ENC_MODELS))
+    return out
+
+
 # ------------------------------------------------------------------- main
 FA_SRC = "tpu_engine/kernels/flash_attention.py"
 SOURCES = {  # kernel -> (source, the TPU kernel(s) it replaces)
@@ -1084,29 +1436,61 @@ SOURCES = {  # kernel -> (source, the TPU kernel(s) it replaces)
 }
 
 
+# an encoder layer's products by kernel, as counts of ENC_QMM tensors: bge's
+# Q8_0 layer (q, k, v, o; up; down) and nomic-embed's Q6_K pair (v, down
+# on its use_more_bits layers) on qmm_i8, nomic-embed's Q4_K layer (q, k,
+# v, o; gate, up; down) on qmm_nib4
+ENC_LAYERS = {
+    "qmm_i8": {"bge Q8_0 layer": {"wq Q8_0": 4, "w_up Q8_0": 1, "w_down Q8_0": 1},
+               "nomic Q6_K pair": {"wv Q6_K": 1, "w_down Q6_K": 1}},
+    "qmm_nib4": {"nomic Q4_K layer": {"wq Q4_K": 4, "w_up Q4_K": 2,
+                                      "w_down Q4_K": 1}},
+}
+
+
+def _sum_rows(sel: list[tuple[dict, int]]) -> dict:
+    """Times, bounds and the yardstick summed over (row, multiplicity)."""
+    total = sum(r["bound_ms"] * c for r, c in sel)
+    b_bytes = sum(r["bound_ms"] * c for r, c in sel if r["bound_by"] == "bytes")
+    return dict(ms=sum(r["ms"] * c for r, c in sel),
+                plain_ms=sum(r["plain_ms"] * c for r, c in sel),
+                bound_ms=total,
+                bound_by="bytes" if b_bytes * 2 >= total else "operations",
+                library_ms=sum(r["library_ms"] * c for r, c in sel))
+
+
 def summarize(rows: list[dict], launches: dict) -> list[dict]:
     """One line per kernel: the main-path shape set of a decode step for the
     projections (M=8, summed over the layer's tensors of that kernel); for
     attention the row attn_cases marks (B=8 KH=32 decode at fills 1..511
     and the B=1 Tc=512 history-0 prefill: f16 "td", q8_0 "dt"; the rope
-    kernels at the same shapes with self-extend at ATTN_GA)."""
+    kernels at the same shapes with self-extend at ATTN_GA). The qmm lines
+    carry under "encoder" an encoder layer's products (ENC_LAYERS) at each
+    bucket of ENC_MS, with library_ms cuBLAS bf16 on the same shapes."""
     out = []
     for name, (src, repl) in SOURCES.items():
         if name.startswith("qmm"):
             sel = [r for r in rows if r["kernel"] == name and r["M"] == 8
-                   and r["timed"]]
+                   and r["timed"] and not r.get("encoder")]
         else:
             sel = [r for r in rows if r["kernel"] == name and r["main"]]
-        b_bytes = sum(r["bound_ms"] for r in sel if r["bound_by"] == "bytes")
-        out.append(dict(
+        line = dict(
             name=name, route="cuda", source=src, replaces=repl,
             launches=int(launches[name]),
             max_abs_err=max(r["max_abs_err"] for r in rows if r["kernel"] == name),
-            ms=sum(r["ms"] for r in sel), plain_ms=sum(r["plain_ms"] for r in sel),
-            bound_ms=sum(r["bound_ms"] for r in sel),
-            bound_by="bytes" if b_bytes * 2 >= sum(r["bound_ms"] for r in sel)
-            else "operations",
-            library_ms=sum(r["library_ms"] for r in sel)))
+            **_sum_rows([(r, 1) for r in sel]))
+        if name in ENC_LAYERS:
+            line["encoder"] = []
+            for layer, counts in ENC_LAYERS[name].items():
+                for m in ENC_MS:
+                    enc = [(r, counts[r["tensor"]]) for r in rows
+                           if r.get("encoder") and r["M"] == m
+                           and r["tensor"] in counts]
+                    summ = _sum_rows(enc)
+                    summ["library_ms"] = sum(r["library_bf16_ms"] * c
+                                             for r, c in enc)
+                    line["encoder"].append(dict(layer=layer, M=m, **summ))
+        out.append(line)
     return out
 
 
@@ -1174,10 +1558,14 @@ def main() -> int:
             f"Q4_K_M mix) in {time.time() - t0:.1f}s")
         detail["model"] = model_phase(path)
         detail["server"] = server_phase(path, smi)
-    # launches of the main path: the five server cycles, each counted
-    # from zero at its /loadmodel to its /unloadmodel
-    launches = {k: sum(c["launches"][k] for c in detail["server"].values())
-                for k in SOURCES}
+        detail["embedding"] = embedding_phase(tmp, smi, path, Timer(ITERS))
+    # launches of the main path: the five server cycles and the three
+    # embedding cycles, each counted from zero at its /loadmodel to its
+    # /unloadmodel
+    cycles = list(detail["server"].values()) + [
+        detail["embedding"][label]["server"] for label, *_ in ENC_MODELS] + [
+        detail["embedding"]["llama causal"]]
+    launches = {k: sum(c["launches"][k] for c in cycles) for k in SOURCES}
     detail["launches"] = launches
     detail["wall_s"] = time.time() - t_start
     log(f"chip_smoke: every phase in {detail['wall_s']:.1f}s")

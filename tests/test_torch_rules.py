@@ -4,7 +4,8 @@
     relative imports stay inside the port package);
   - the package imports in a process where importing jax fails;
   - with no CUDA device, an entry point called without device="cpu"
-    raises instead of running on the CPU.
+    raises instead of running on the CPU (load_model of causal and
+    non-causal GGUFs, the registry's EncoderEngine, the server).
 """
 
 import ast
@@ -98,6 +99,40 @@ def test_load_model_without_device_raises(no_cuda, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         load_model(path)
     assert load_model(path, device="cpu").device.type == "cpu"
+
+
+def test_load_encoder_without_device_raises(no_cuda, tmp_path):
+    """load_model of a non-causal GGUF (nomic-bert) defaults to cuda too."""
+    from tpu_engine_torch.model.loader import load_model
+    from tpu_engine_torch.tools.encoder_gguf import build_nomic_bert_gguf
+
+    path = build_nomic_bert_gguf(str(tmp_path / "e.gguf"), level="f32",
+                                 widths=(1, 64, 2, 128, 64, 32))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        load_model(path)
+    lm = load_model(path, device="cpu")
+    assert not lm.cfg.causal and lm.device.type == "cpu"
+
+
+def test_registry_encoder_without_device_raises(no_cuda, tmp_path):
+    """The registry builds an EncoderEngine for a non-causal GGUF on the
+    registry's device: cuda by default (raises here), the CPU only when
+    asked, and the engine's tensors lie there."""
+    from tpu_engine_torch.serve.encoder import EncoderEngine
+    from tpu_engine_torch.serve.registry import EngineRegistry
+    from tpu_engine_torch.tools.encoder_gguf import build_nomic_bert_gguf
+
+    path = build_nomic_bert_gguf(str(tmp_path / "e.gguf"), level="f32",
+                                 widths=(1, 64, 2, 128, 64, 32))
+    body = {"llama_model_path": path, "model": "e", "model_type": "embedding"}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        EngineRegistry().load_model(dict(body))
+    reg = EngineRegistry(device="cpu")
+    ok, msg = reg.load_model(dict(body))
+    assert ok, msg
+    engine = reg.get("e").engine
+    assert isinstance(engine, EncoderEngine) and engine.device.type == "cpu"
+    reg.unload_all()
 
 
 def test_server_without_device_raises(no_cuda):

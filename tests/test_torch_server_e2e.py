@@ -163,7 +163,6 @@ def test_full_cortex_flow(server, models):
 
 @pytest.mark.parametrize("extra,what", [
     ({"mmproj": "/nonexistent/mmproj.gguf"}, "multimodal"),
-    ({"model_type": "embedding"}, "embedding"),
     ({"tensor_parallel": 2}, "tensor_parallel"),
     ({"data_parallel": 2}, "data_parallel"),
     ({"tensor_parallel": "2"}, "tensor_parallel=2"),
@@ -177,6 +176,25 @@ def test_loadmodel_refuses_later_slices(server, models, extra, what):
     assert what in resp["error"]
     status, _ = post(base, "/modelstatus", {"model": "refused"})
     assert status == 409
+
+
+def test_loadmodel_causal_embedding(server, models):
+    """A causal GGUF loaded with model_type "embedding" is served (by
+    InferenceEngine's embedding path, no warm-up): /v1/embeddings gives
+    unit vectors, as in the JAX package."""
+    status, resp = post(server, "/loadmodel",
+                        {**LOAD, "model": "emb", "model_alias": "emb",
+                         "llama_model_path": models[0],
+                         "model_type": "embedding"})
+    assert status == 200, resp
+    status, resp = post(server, "/v1/embeddings",
+                        {"model": "emb", "input": ["hello world", [1, 5, 9]]})
+    assert status == 200 and len(resp["data"]) == 2, resp
+    for d in resp["data"]:
+        np.testing.assert_allclose(np.linalg.norm(d["embedding"]), 1.0,
+                                   rtol=1e-4)
+    status, _ = post(server, "/unloadmodel", {"model": "emb"})
+    assert status == 200
 
 
 def test_loadmodel_tensor_parallel_auto(server, models):

@@ -24,6 +24,7 @@ kernel (or raises); on a CPU tensor it runs qmatmul_plain.
 from __future__ import annotations
 
 import ctypes
+import threading
 from dataclasses import replace
 
 import torch
@@ -31,8 +32,11 @@ import torch
 from ..model.weights import QTensor, dequant
 from . import _build
 
-# launches per kernel, bumped only where a kernel is launched
+# launches per kernel, bumped only where a kernel is launched; under a lock,
+# since separate engines (two loaded models, or an encoder beside the LLM
+# loop) launch from their own threads at the same time
 LAUNCHES = {"qmm_nib4": 0, "qmm_i8": 0}
+_LAUNCHES_LOCK = threading.Lock()
 
 
 def qmatmul_plain(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
@@ -126,7 +130,8 @@ def qmm_cuda(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
         None if qt.bias is None else P(qt.bias), P(y), m, n, k, qt.group,
         _build.stream_ptr(x.device))
     _build.check(rc, name)
-    LAUNCHES[name] += 1
+    with _LAUNCHES_LOCK:
+        LAUNCHES[name] += 1
     return y
 
 

@@ -33,6 +33,7 @@ raises); on CPU tensors it runs attention_reference, the plain version.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -49,8 +50,10 @@ _LIBS = {"attn_decode": "attn", "attn_prefill": "attn",
          "attn_decode_dt_rope": "attn_dt_rope",
          "attn_prefill_dt_rope": "attn_dt_rope"}
 
-# launches per kernel, bumped only where a kernel is launched
+# launches per kernel, bumped only where a kernel is launched; under a lock,
+# since separate engines (two loaded models) launch from their own threads
 LAUNCHES = dict.fromkeys(_LIBS, 0)
+_LAUNCHES_LOCK = threading.Lock()
 
 # cache cells per decode split: attn_common.cuh's DEC_SPLIT
 DEC_SPLIT = 64
@@ -217,7 +220,8 @@ def attn_kernel(name: str, q, k_new, v_new, cache: KVCache, li: int,
         float(softcap), cos, sin, rd, None if ws is None else P(ws),
         _build.stream_ptr(q.device))
     _build.check(rc, name)
-    LAUNCHES[name] += 1
+    with _LAUNCHES_LOCK:
+        LAUNCHES[name] += 1
     return out
 
 

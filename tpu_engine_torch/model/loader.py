@@ -5,7 +5,8 @@ Parses the GGUF, converts quantized tensors to the natural device layout
 gate|up along N where the parts share a format (concat_qtensors), and
 builds the tokenizer and config. "norm"-rope models are converted to
 split-half ("neox") rotation by de-interleaving the q/k projection rows
-(exact; scores are invariant).
+(exact; scores are invariant). Non-causal GGUFs (bert, nomic-bert) load
+into the encoder layout that model/bert.py reads (_load_encoder).
 
 The layers stay a per-layer list: the port runs them in a Python loop.
 """
@@ -64,23 +65,71 @@ def _vec(g: GGUFFile, name: str, device, dtype, perm=None):
     return torch.from_numpy(np.ascontiguousarray(w)).to(device=device, dtype=dtype)
 
 
+def _load_encoder(g: GGUFFile, cfg: ModelConfig, dev,
+                  compute_dtype) -> dict:
+    """bert / nomic-bert tensor layout (llama.cpp's encoder conventions;
+    model/bert.py reads this dict). Every LayerNorm carries a bias; the
+    separate attn_q/k/v and the other projections may (bert) or may not
+    (nomic-bert) carry one; ffn_gate exists only for nomic-bert."""
+
+    def vec(name):
+        return _vec(g, name, dev, compute_dtype)
+
+    def dense(lw, key, gname):
+        lw[key] = qtensor_from_gguf(g, gname + ".weight", dev, compute_dtype)
+        if gname + ".bias" in g.tensors:
+            lw[key + "_b"] = vec(gname + ".bias")
+
+    weights = {
+        "token_embd": qtensor_from_gguf(g, "token_embd.weight", dev,
+                                        compute_dtype),
+        "token_embd_norm": vec("token_embd_norm.weight"),
+        "token_embd_norm_b": vec("token_embd_norm.bias"),
+        "layers": [],
+    }
+    for name in ("token_types", "position_embd"):
+        if name + ".weight" in g.tensors:
+            weights[name] = vec(name + ".weight")
+    for i in range(cfg.n_layer):
+        p = f"blk.{i}."
+        lw = {
+            "attn_norm": vec(p + "attn_output_norm.weight"),
+            "attn_norm_b": vec(p + "attn_output_norm.bias"),
+            "ffn_norm": vec(p + "layer_output_norm.weight"),
+            "ffn_norm_b": vec(p + "layer_output_norm.bias"),
+        }
+        for key, gname in (("wq", "attn_q"), ("wk", "attn_k"), ("wv", "attn_v"),
+                           ("wo", "attn_output"), ("w_up", "ffn_up"),
+                           ("w_down", "ffn_down")):
+            dense(lw, key, p + gname)
+        if p + "ffn_gate.weight" in g.tensors:  # nomic-bert SwiGLU
+            dense(lw, "w_gate", p + "ffn_gate")
+        weights["layers"].append(lw)
+    return weights
+
+
 def load_model(path: str, device=None, compute_dtype=torch.float32) -> LoadedModel:
-    """Load a causal GGUF model onto `device` (default "cuda"; raises when
-    CUDA is missing and the CPU was not asked for)."""
+    """Load a GGUF model onto `device` (default "cuda"; raises when CUDA is
+    missing and the CPU was not asked for). A causal model gets the
+    llama-family layout, a non-causal one the encoder layout."""
     dev = resolve_device(device)
     t0 = time.time()
     g = read_gguf(path)
     try:
         cfg = ModelConfig.from_gguf_metadata(g.metadata)
-        if not cfg.causal:
-            raise NotImplementedError(
-                "non-causal (embedding) models are not yet supported by "
-                "tpu_engine_torch")
         if "rope_freqs.weight" in g.tensors:
             cfg.rope_freqs = tuple(
                 float(x) for x in
                 np.asarray(g.dequantize("rope_freqs.weight", np.float32)))
         tok = Tokenizer.from_gguf_metadata(g.metadata)
+        size = sum(t.n_bytes for t in g.tensors.values())
+        if not cfg.causal:
+            weights = _load_encoder(g, cfg, dev, compute_dtype)
+            log.info("loaded encoder %s onto %s in %.1fs", path, dev,
+                     time.time() - t0)
+            return LoadedModel(cfg=cfg, tokenizer=tok, weights=weights,
+                               model_size_bytes=size,
+                               metadata=dict(g.metadata), device=dev)
         add_one = cfg.arch.startswith("gemma")
 
         qk_perm = None
@@ -155,7 +204,6 @@ def load_model(path: str, device=None, compute_dtype=torch.float32) -> LoadedMod
         else:
             cfg.tie_embeddings = True
             weights["output"] = weights["token_embd"]
-        size = sum(t.n_bytes for t in g.tensors.values())
         log.info("loaded %s onto %s in %.1fs", path, dev, time.time() - t0)
         return LoadedModel(cfg=cfg, tokenizer=tok, weights=weights,
                            model_size_bytes=size, metadata=dict(g.metadata),

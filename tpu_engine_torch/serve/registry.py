@@ -1,9 +1,12 @@
 """Multi-model engine registry — the LlamaEngine analog (PyTorch port).
 
-Options the port does not carry yet (mmproj, embedding/non-causal
-models, a device grid whose tensor_parallel or data_parallel is above 1)
-are refused at /loadmodel with a "not yet supported by tpu_engine_torch"
-error, never served another way. tensor_parallel "auto" resolves to the
+Options the port does not carry yet (mmproj, a device grid whose
+tensor_parallel or data_parallel is above 1) are refused at /loadmodel
+with a "not yet supported by tpu_engine_torch" error, never served
+another way. A non-causal GGUF (bert, nomic-bert) is served by
+serve/encoder.EncoderEngine; a causal one loaded with `model_type:
+"embedding"` by InferenceEngine's embedding path, without warm-up.
+tensor_parallel "auto" resolves to the
 attached devices over data_parallel, as in the JAX package: on one card
 (or the CPU) that is 1, served unsharded. cache_type f16, q8_0 and q4_0
 are served; an unknown type warns and falls back to f16, as the
@@ -29,6 +32,7 @@ import torch
 
 from ..api.openai import ModelPrompts
 from ..model.loader import LoadedModel, load_model
+from .encoder import EncoderEngine
 from .engine import InferenceEngine
 from .types import CompletionParams
 
@@ -54,8 +58,8 @@ def get_model_id(body: dict) -> str:
 
 
 class ModelEntry:
-    def __init__(self, model_id: str, engine: InferenceEngine, model: LoadedModel,
-                 prompts: ModelPrompts, opts: dict):
+    def __init__(self, model_id: str, engine: InferenceEngine | EncoderEngine,
+                 model: LoadedModel, prompts: ModelPrompts, opts: dict):
         self.model_id = model_id
         self.engine = engine
         self.model = model
@@ -115,8 +119,6 @@ class EngineRegistry:
         # grp_attn_n > 1 by the *_rope kernels of the same layout
         if body.get("mmproj"):
             return _unsupported("mmproj (multimodal)")
-        if str(body.get("model_type", "llm")) == "embedding":
-            return _unsupported("model_type 'embedding'")
         # the device grid, resolved as the JAX package resolves it: "auto"
         # takes every attached device not used for data parallelism
         tp_req = body.get("tensor_parallel", 1)
@@ -145,6 +147,30 @@ class EngineRegistry:
             lm = load_model(str(path), device=self.device)
         except NotImplementedError as e:
             return False, str(e)
+
+        if not lm.cfg.causal:
+            # bidirectional embedding model (bert family, the reference's
+            # nomic-embed flow): the encoder engine, no decode loop
+            engine = EncoderEngine(lm, n_ctx=n_ctx)
+            try:
+                engine.warm_up()
+            except Exception as e:  # warm-up failure is fatal for the load
+                return False, f"warm-up failed: {e}"
+            opts = {
+                "caching_enabled": False,
+                "model_type": "embedding",
+                "embedding": True,
+                "grammar": "",
+                "ctx_len": engine.n_ctx,
+                "n_parallel": 1,
+            }
+            entry = ModelEntry(model_id, engine, lm, ModelPrompts(), opts)
+            entry.load_body = dict(body)
+            with self._lock:
+                self._models[model_id] = entry
+            log.info("embedding model %s loaded (pooling=%s)",
+                     model_id, lm.cfg.pooling_type)
+            return True, f"Model {model_id} loaded successfully"
 
         # knob parity with the reference's LoadModelImpl
         # (llama_engine.cc:569-570,610,618,649-650): n_ubatch maps to our
