@@ -48,7 +48,16 @@ ranks as two processes on cuda:0 over gloo, the kernels at a TP=2
 rank's shapes (in the kernel phase), TP=2 and DP=2 logits against one
 rank, three served grid cycles (tensor_parallel 2 at f16 and q8_0,
 data_parallel 2) held to the 1x1 cycles token by token, and a 1x1 mesh
-through the TP path. Any failure raises and exits non-zero. The last lines are the kernel table as
+through the TP path. Last, the family phase, with a torch generator and
+numpy seeds of its own: the kernels at the shapes of four more families
+(tools/family_gguf.py: gemma2, qwen2, phi3, llama3.1 at their published
+widths, cut to 2 layers), then each family's file written and loaded on
+the card, held as the Llama model is (model_qmm_run, near-ties allowed;
+attn_model_run at f16 and q8_0 KV; gemma2 and phi3 past their windows,
+and apart from the run with the window off), and gemma2 (f16) and qwen2
+(q8_0, with a context shift) served through /loadmodel, each served
+token teacher-forced through the twins. Any failure raises and exits
+non-zero. The last lines are the kernel table as
 one JSON object, the card's name and power limit from nvidia-smi, and
 {"ok": true, "device": {...}}. Per-shape details go to
 chiprun_out/chip_smoke.json.
@@ -58,6 +67,7 @@ from __future__ import annotations
 
 import base64
 import contextlib
+import dataclasses
 import io
 import json
 import math
@@ -84,6 +94,7 @@ from tpu_engine_torch.model import llama as LL
 from tpu_engine_torch.model import weights as W
 from tpu_engine_torch.model.config import ModelConfig
 from tpu_engine_torch.serve import ops as OPS
+from tpu_engine_torch.tools import family_gguf as FG
 from tpu_engine_torch.tools.timing import Timer
 
 HBM_BYTES_S = 3.35e12  # H100 SXM HBM3
@@ -195,9 +206,10 @@ def qmm_check(name, qt, x) -> tuple[float, float]:
     return err, rel
 
 
-def qmm_timed_row(timer: Timer, name, qt, x, w_f32, w_bf16) -> dict:
+def qmm_timed_row(timer: Timer, name, qt, x, w_f32, w_bf16, smi="") -> dict:
     """qmm_check on x, then the kernel's, its twin's and cuBLAS's times
-    (f32 and bf16 on the pre-dequantized weight) beside the bound."""
+    (f32 and bf16 on the pre-dequantized weight) beside the bound; smi:
+    the card's name and power limit, for the log line."""
     m, (n, k) = x.shape[0], qt.shape
     err, rel = qmm_check(name, qt, x)
     # the kernels read x as bf16, with a bias also its f32 group sums (one
@@ -225,7 +237,8 @@ def qmm_timed_row(timer: Timer, name, qt, x, w_f32, w_bf16) -> dict:
         f"(tol {QMM_TOL}, equal bits on repeat) kernel_ms "
         f"{row['ms']:.4f} bound_ms {bound:.4f} ({row['bound_by']}) "
         f"library_ms {row['library_ms']:.4f} library_bf16_ms "
-        f"{row['library_bf16_ms']:.4f} plain_ms {row['plain_ms']:.4f}")
+        f"{row['library_bf16_ms']:.4f} plain_ms {row['plain_ms']:.4f}"
+        + (f" [{smi}]" if smi else ""))
     return row
 
 
@@ -306,13 +319,15 @@ def attn_case(gen, B, KH, G, D, T, starts, Tc, n_valid, kind="f16",
                 n_valid=nv, k_new=k_new, v_new=v_new, starts=st)
 
 
-def attn_bytes_flops(c, Tc, rope_dim=0):
+def attn_bytes_flops(c, Tc, rope_dim=0, win=0):
     """Bytes the call must move (q in and out, the in-flight rows, and each
     live cell of K and V once: its Dk stored elements plus, when quantized,
     its 4-byte scale) and the multiply-adds of the attended pairs. With
     rope_dim (a rope kernel): also the cos/sin table rows of the cells
     read (each once: rows share them) and the rotation of each live K
-    cell (6 operations per rotated pair)."""
+    cell (6 operations per rotated pair). With a window: a cell is live
+    when some query row of its slot sees it (a row at position p sees
+    positions p - win + 1 .. p)."""
     q, cache = c["q"], c["cache"]
     B, _, H, D = q.shape
     KH = c["k_new"].shape[1]
@@ -320,13 +335,18 @@ def attn_bytes_flops(c, Tc, rope_dim=0):
     nv = c["n_valid"].tolist()
     Dk = cache.k.shape[3 if cache.layout == "dt" else 4]
     cell = Dk * cache.k.element_size() + (4 if cache.quantized else 0)
-    live = sum(starts)
+    live = sum(min(s, win - 1) for s in starts) if win else sum(starts)
     bytes_ = (q.numel() * 4 * 2 + 2 * c["k_new"].numel() * 4
               + 2 * live * KH * cell)
     keys = 0  # attended keys summed over query rows (data-dependent)
     for b in range(B):
         for t in range(Tc):
-            keys += starts[b] + min(t + 1, nv[b])
+            if win:  # cached cells from position lo, in-flight rows from lo
+                lo = starts[b] + t - win + 1
+                keys += (starts[b] - min(max(lo, 0), starts[b])
+                         + max(0, min(t + 1, nv[b]) - max(lo - starts[b], 0)))
+            else:
+                keys += starts[b] + min(t + 1, nv[b])
     flops = 4.0 * keys * H * D
     if rope_dim:
         bytes_ += 2 * max(starts) * (rope_dim // 2) * 4
@@ -334,11 +354,12 @@ def attn_bytes_flops(c, Tc, rope_dim=0):
     return bytes_, flops
 
 
-def sdpa_inputs(c, Tc, cfg=None, ga=None):
+def sdpa_inputs(c, Tc, cfg=None, ga=None, win=0):
     """Gathered, dequantized, "td"-ordered and GQA-expanded f32 K/V and the
-    boolean mask for the yardstick (made outside its timing). With ga (a
-    rope kernel's case): cached K rotated by its remapped cell positions
-    here, so the rotation is not in the yardstick's time."""
+    boolean mask (with win: of the window too) for the yardstick (made
+    outside its timing). With ga (a rope kernel's case): cached K rotated
+    by its remapped cell positions here, so the rotation is not in the
+    yardstick's time."""
     q, cache = c["q"], c["cache"]
     B, _, H, D = q.shape
     KH = c["k_new"].shape[1]
@@ -366,6 +387,10 @@ def sdpa_inputs(c, Tc, cfg=None, ga=None):
     m_cache = (cell[None, None, :] < st[:, None, None]).expand(B, Tc, T)
     m_new = (t[None, None, :] <= t[None, :, None]) & (
         t[None, None, :] < c["n_valid"].long()[:, None, None])
+    if win:
+        q_pos = st[:, None, None] + t[None, :, None]
+        m_cache = m_cache & (cell[None, None, :] > q_pos - win)
+        m_new = m_new & (t[None, None, :] > t[None, :, None] - win)
     mask = torch.cat([m_cache, m_new.expand(B, Tc, Tc)], 2)[:, None]
     return q.transpose(1, 2).contiguous(), kk, vv, mask
 
@@ -672,16 +697,23 @@ def attn_phase(timer: Timer, gen) -> list[dict]:
     return rows
 
 
-def attn_timed_row(timer: Timer, gen, kname, shape, kw, main) -> dict:
-    """attn_check on one case, then the kernel's, attention_reference's
-    and sdpa's times beside the bound."""
-    c, args, mode, err, rel = attn_check(gen, kname, kw)
+def attn_timed_row(timer: Timer, gen, kname, shape, kw, main, win=0,
+                   cap=0.0, repeat=False, smi="") -> dict:
+    """attn_check on one case (window win, softcap cap), then the kernel's,
+    attention_reference's and sdpa's times beside the bound (sdpa takes
+    the window in its mask and has no softcap). repeat: a second launch
+    must give the same bits. smi: the card's name and power limit, for
+    the log line."""
+    c, args, mode, err, rel = attn_check(gen, kname, kw, win, cap)
+    if repeat and not torch.equal(FA.flash_attention(*args, **mode),
+                                  FA.flash_attention(*args, **mode)):
+        raise AssertionError(f"{kname} {shape}: two launches differ")
     Tc = kw["Tc"]
     rope = kname.endswith("_rope")
     cfg = args[8]
-    bytes_, flops = attn_bytes_flops(c, Tc, cfg.rope_dim if rope else 0)
+    bytes_, flops = attn_bytes_flops(c, Tc, cfg.rope_dim if rope else 0, win)
     bound = max(bytes_ / HBM_BYTES_S, flops / F32_FLOPS_S) * 1e3
-    qs, kk, vv, mask = sdpa_inputs(c, Tc, cfg, ATTN_GA if rope else None)
+    qs, kk, vv, mask = sdpa_inputs(c, Tc, cfg, ATTN_GA if rope else None, win)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     lib = timer(lambda: sdpa(qs, kk, vv, attn_mask=mask))
     row = dict(kernel=kname, shape=shape, main=main, max_abs_err=err,
@@ -693,9 +725,10 @@ def attn_timed_row(timer: Timer, gen, kname, shape, kw, main) -> dict:
                bound_by="bytes" if bytes_ / HBM_BYTES_S >= flops / F32_FLOPS_S
                else "operations")
     log(f"{kname} {shape}: max_abs_err {err:.3e} rel {rel:.3e} "
-        f"(tol {ATTN_TOL} abs) "
+        f"(tol {ATTN_TOL} abs{', equal bits on repeat' if repeat else ''}) "
         f"kernel_ms {row['ms']:.4f} bound_ms {bound:.4f} ({row['bound_by']}) "
-        f"library_ms {lib:.4f} (sdpa) plain_ms {row['plain_ms']:.4f}")
+        f"library_ms {lib:.4f} (sdpa) plain_ms {row['plain_ms']:.4f}"
+        + (f" [{smi}]" if smi else ""))
     return row
 
 
@@ -1025,18 +1058,9 @@ def server_phase(path: str, smi: str) -> dict:
     tok = Tokenizer.from_gguf_metadata(g.metadata)
     g.close()
     srv, th, base = start_server()
-    # count the engine's context shifts (kvcache.shift_compact calls), the
-    # cache they ran on and whether they re-roped K (rope is None: K
-    # stored unrotated, moved as it is)
     shifts = []
     real_shift = OPS.shift_compact
-
-    def counting_shift(cache, *a, rope=None, **kw):
-        shifts.append((cache.kind, cache.layout, cache.k.device.type,
-                       rope is None))
-        return real_shift(cache, *a, rope=rope, **kw)
-
-    OPS.shift_compact = counting_shift
+    OPS.shift_compact = counting_shift(shifts)
     try:
         out = {}
         # "+se": self-extend (grp_attn_n 4, grp_attn_w 128 inside the
@@ -1058,6 +1082,20 @@ def server_phase(path: str, smi: str) -> dict:
         OPS.shift_compact = real_shift
         stop_server(srv, th)
     return out
+
+
+def counting_shift(shifts: list):
+    """OPS.shift_compact that also counts the engine's context shifts
+    (kvcache.shift_compact calls) in `shifts`: the cache each ran on and
+    whether it re-roped K (rope is None: K stored unrotated, moved as it
+    is)."""
+    real_shift = OPS.shift_compact
+
+    def shift(cache, *a, rope=None, **kw):
+        shifts.append((cache.kind, cache.layout, cache.k.device.type,
+                       rope is None))
+        return real_shift(cache, *a, rope=rope, **kw)
+    return shift
 
 
 SERVED_PROMPTS = [20, 60, 110, 160, 210, 270, 330, 400]  # prompt tokens
@@ -2298,6 +2336,17 @@ def held(label: str, got, ref, bound: float) -> dict:
                 max_logit=pmax, bound=bound, top1_differ=differ)
 
 
+def served_sampler(lm, tok, i: int):
+    """The host Sampler of served request i (_chat_body's parameters: its
+    repeat penalties), with no token accepted yet."""
+    from tpu_engine_torch.api.openai import ModelPrompts, parse_chat_request
+    from tpu_engine_torch.sampling import Sampler
+
+    params, _ = parse_chat_request(_chat_body(tok, i, SERVED_PROMPTS[i]),
+                                   ModelPrompts(), True)
+    return Sampler(params.sampling, lm.cfg.n_vocab, eos_id=lm.tokenizer.eos_id)
+
+
 def trace_served(lm, tok, label: str, kind: str, ref: dict, got: dict,
                  bound: float) -> list:
     """Each request's generated tokens in a grid cycle against the 1x1
@@ -2309,9 +2358,6 @@ def trace_served(lm, tok, label: str, kind: str, ref: dict, got: dict,
     other b only if the one-rank logits at a and b, after the request's
     repeat penalties over its last tokens (as the samplers apply them),
     lie within that bound."""
-    from tpu_engine_torch.api.openai import ModelPrompts, parse_chat_request
-    from tpu_engine_torch.sampling import Sampler
-
     eos = lm.tokenizer.eos_id
     ties = []
     for i, (a, b) in enumerate(zip(ref["generated"], got["generated"])):
@@ -2324,9 +2370,7 @@ def trace_served(lm, tok, label: str, kind: str, ref: dict, got: dict,
                               _kv_cache(lm.cfg, 1, 1024, PAR_DEVICES[0], kind),
                               [prefix], 0)
         row = logits[0, 0].cpu().numpy().copy()
-        params, _ = parse_chat_request(_chat_body(tok, i, SERVED_PROMPTS[i]),
-                                       ModelPrompts(), True)
-        sampler = Sampler(params.sampling, lm.cfg.n_vocab, eos_id=eos)
+        sampler = served_sampler(lm, tok, i)
         for t in prefix:
             sampler.accept(t, apply_grammar=False)
         m = float(np.abs(row).max())
@@ -2543,6 +2587,295 @@ def parallel_phase(path: str, tmp: str, smi: str, ref_cycles: dict) -> dict:
     return out
 
 
+# --------------------------------------------------------------- families
+FAM_SEED = 15      # the family phase's own torch and numpy seeds: no other
+                   # phase draws from them
+FAM_LAYERS = 2     # depth cut of each family (published widths otherwise)
+FAM_ORDER = ("gemma2", "qwen2", "phi3", "llama3.1")
+FAM_SERVED = {"gemma2": "f16", "qwen2": "q8_0"}  # served cycles' cache type
+FAM_WINDOW_PROMPT = {"gemma2": 4608, "phi3": 2560}  # tokens, past the window
+WINDOW_DIFF = 1e-2  # windowed logits differ from window-off ones by more
+# the families' products (M=8, a decode step): gemma2's tied Q6_K head,
+# phi3's fused Q5_K q|k|v, and a qwen2 layer's Q4_K tensors
+FAM_QMM = [
+    ("gemma2 output Q6_K", "i8", 16, False, 256000, 3584),
+    ("phi3 wqkv Q5_K", "i8", 32, True, 9216, 3072),
+    ("qwen2 wqkv Q4_K", "nib4", 32, True, 4608, 3584),
+    ("qwen2 wo Q4_K", "nib4", 32, True, 3584, 3584),
+    ("qwen2 w_gateup Q4_K", "nib4", 32, True, 37888, 3584),
+    ("qwen2 w_down Q4_K", "nib4", 32, True, 3584, 18944),
+]
+FILLS_8K = [4097, 8191, 4133, 6144, 5120, 7600, 4098, 7300]  # 4097..8191
+_DEC = dict(B=8, T=512, starts=FILLS, Tc=1, n_valid=[1] * 8)
+_PRE = dict(B=1, T=1024, starts=[0], Tc=512, n_valid=[512])
+_QWEN = dict(KH=4, G=7, D=128)
+_GEMMA = dict(KH=8, G=2, D=256, T=8192)
+_PHI = dict(KH=32, G=1, D=96, layout="dt")
+FAM_ATTN = [  # (kernel, label, attn_case kwargs, window, softcap)
+    ("attn_decode", "f16 td B=8 KH=4 G=7 D=128 T=512 fills 1..511 (Qwen2)",
+     dict(_DEC, **_QWEN), 0, 0.0),
+    ("attn_prefill", "f16 td B=1 Tc=512 history 0 KH=4 G=7 D=128 (Qwen2)",
+     dict(_PRE, **_QWEN), 0, 0.0),
+    ("attn_decode", "f16 td B=8 KH=8 G=2 D=256 T=8192 fills 4097..8191 "
+     "window 4096 softcap 50 (Gemma-2)",
+     dict(B=8, starts=FILLS_8K, Tc=1, n_valid=[1] * 8, **_GEMMA), 4096, 50.0),
+    ("attn_prefill", "f16 td B=1 Tc=512 history 4096 KH=8 G=2 D=256 T=8192 "
+     "window 4096 softcap 50 (Gemma-2)",
+     dict(B=1, starts=[4096], Tc=512, n_valid=[512], **_GEMMA), 4096, 50.0),
+    ("attn_decode_dt", "q8_0 dt B=8 KH=4 G=7 D=128 T=512 fills 1..511 (Qwen2)",
+     dict(_DEC, kind="q8_0", layout="dt", **_QWEN), 0, 0.0),
+    ("attn_prefill_dt", "q8_0 dt B=1 Tc=512 history 0 KH=4 G=7 D=128 (Qwen2)",
+     dict(_PRE, kind="q8_0", layout="dt", **_QWEN), 0, 0.0),
+    ("attn_decode_dt", "f16 dt B=8 KH=32 G=1 D=96 T=512 fills 1..511 (Phi-3)",
+     dict(_DEC, **_PHI), 0, 0.0),
+    ("attn_prefill_dt", "f16 dt B=1 Tc=512 history 0 KH=32 G=1 D=96 (Phi-3)",
+     dict(_PRE, **_PHI), 0, 0.0),
+]
+
+
+def family_kernel_rows(timer: Timer, smi: str) -> list[dict]:
+    """Each kernel at the families' shapes (FAM_QMM, FAM_ATTN) against its
+    plain version, with equal bits on repeat, and timed."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(FAM_SEED)
+    rows = []
+    for name, kind, group, has_bias, n, k in FAM_QMM:
+        qt = rand_qtensor(gen, name, n, k, kind, group, has_bias)
+        w_f32 = W.dequant(qt)
+        x = torch.randn((8, k), generator=gen, device="cuda")
+        rows.append(dict(qmm_timed_row(timer, name, qt, x, w_f32,
+                                       w_f32.to(torch.bfloat16), smi),
+                         family=True))
+        del qt, w_f32
+    for kname, shape, kw, win, cap in FAM_ATTN:
+        rows.append(dict(attn_timed_row(timer, gen, kname, shape, kw, False,
+                                        win, cap, repeat=True, smi=smi),
+                         family=True))
+    torch.cuda.empty_cache()
+    return rows
+
+
+def family_config(family: str, lm) -> dict:
+    """What the loaded model must hold for its family: the published
+    widths at FAM_LAYERS layers, the window, the Q6_K head and what only
+    the family has."""
+    cfg, fam = lm.cfg, FG.FAMILIES[family]
+    lw = lm.weights["layers"]
+    head = lm.weights["output"]
+    own = {
+        "gemma2": lambda: (cfg.post_norms and cfg.tie_embeddings
+                           and cfg.swa_alternate
+                           and (cfg.attn_logit_softcap,
+                                cfg.final_logit_softcap) == (50.0, 30.0)
+                           and cfg.attention_scale() == 256 ** -0.5
+                           and head is lm.weights["token_embd"]),
+        "qwen2": lambda: all("bqkv" in w or {"bq", "bk", "bv"} <= set(w)
+                             for w in lw),
+        "phi3": lambda: all((w["wqkv"].kind, w["wqkv"].group,
+                             w["wqkv"].bias is not None) == ("i8", 32, True)
+                            and w["w_gateup"].shape[0] == 2 * cfg.n_ff
+                            for w in lw),
+        "llama3.1": lambda: (len(cfg.rope_freqs) == cfg.head_dim // 2
+                             and max(cfg.rope_freqs) == 8.0),
+    }[family]
+    return {
+        "widths": FG.Widths(cfg.n_layer, cfg.n_embd, cfg.n_head,
+                            cfg.n_kv_head, cfg.head_dim, cfg.n_ff,
+                            cfg.n_vocab)
+        == dataclasses.replace(fam.widths, n_layer=FAM_LAYERS),
+        "window": cfg.sliding_window == dict(fam.extra).get(
+            "attention.sliding_window", 0),
+        "Q6_K head": (head.kind, head.group, head.bias is None, head.shape)
+        == ("i8", 16, True, (cfg.n_vocab, cfg.n_embd)),
+        "family's own": bool(own()),
+    }
+
+
+def family_model_checks(family: str, lm) -> dict:
+    """One family's model on the card, as the main model is held: its
+    config (family_config); model_qmm_run (a near-tie may flip a top-1
+    within its bound); attn_model_run at f16 and q8_0 KV; and, with a
+    window, a prompt past it held by attn_model_run and apart from the
+    same run with the window off by more than WINDOW_DIFF."""
+    cfg = lm.cfg
+    feats = family_config(family, lm)
+    log(f"family {family}: {feats}")
+    if not all(feats.values()):
+        raise AssertionError(f"family {family}: loaded {cfg}")
+    label = f"family {family}"
+    rng = np.random.default_rng([FAM_SEED, FAM_ORDER.index(family)])
+    run = prompt_run(lm, [("t", rng.integers(300, cfg.n_vocab, 128).tolist())],
+                     512)
+    plain = dict(rot_cache=True)
+    out = {"config": feats,
+           "qmm": model_qmm_run(cfg, run, label=label, ties=True)}
+    for kind in ("f16", "q8_0"):
+        out[kind], _ = attn_model_run(cfg, run, label, kind, plain, False)
+    n = FAM_WINDOW_PROMPT.get(family)
+    if n:
+        win = cfg.sliding_window
+        run = prompt_run(lm, [("t", rng.integers(300, cfg.n_vocab, n).tolist())],
+                         n + 256)
+        wlabel = f"{label} window {win}, {n}-token prompt"
+        out["window"], on = attn_model_run(cfg, run, wlabel, "f16", plain, False)
+        cfg.sliding_window = 0
+        try:
+            out["window off"], off = attn_model_run(
+                cfg, run, wlabel + ", window off", "f16", plain, False)
+        finally:
+            cfg.sliding_window = win
+        rel = float((on - off).abs().max()) / float(off.abs().max())
+        log(f"{wlabel}: max |dlogit| against the same run with the window "
+            f"off {rel:.3e} of max |logit| (need > {WINDOW_DIFF})")
+        if rel <= WINDOW_DIFF:
+            raise AssertionError(f"{wlabel}: the window left the logits as "
+                                 "they were")
+        out["window"]["rel_dlogit_vs_window_off"] = rel
+    return out
+
+
+def served_through_twins(lm, tok, label: str, kind: str, cyc: dict,
+                         bound: float) -> dict:
+    """Every token a served cycle generated for its SERVED_PROMPTS requests,
+    teacher-forced through the twins and attention_reference over a `kind`
+    KV cache: each prompt prefilled into its own slot, then the generated
+    tokens fed to all slots a step at a time. At each position the plain
+    run's pick after the request's repeat penalties (as the samplers
+    apply them) is the served token, or the two lie within `bound` of max
+    |logit| (trace_served's near-tie rule). A request that stopped before
+    max_tokens picked eos after its last token."""
+    cfg, dev, n = lm.cfg, "cuda", len(SERVED_PROMPTS)
+    prompts = cyc["prompt_ids"][:n]
+    eos = lm.tokenizer.eos_id
+    picks = [g + ([eos] if len(g) < 64 else []) for g in cyc["generated"][:n]]
+    cache = _kv_cache(cfg, n, 512, dev, kind)
+    sl = torch.arange(n, dtype=torch.int32, device=dev)
+    one = torch.ones((1,), dtype=torch.bool, device=dev)
+    rows = []  # [position][n, V] on the host: the logits before each pick
+    W.set_qmatmul_impl(DM.qmatmul_twin)
+    LL.set_attention_impl(LL.attention_reference)
+    try:
+        first = []
+        for i, p in enumerate(prompts):
+            logits, cache, _ = LL.forward_step(
+                lm.weights, cache, torch.tensor([p], dtype=torch.int32,
+                                                device=dev),
+                sl[i:i + 1], one, cfg, rot_cache=True)
+            first.append(logits[0])
+        rows.append(torch.stack(first).cpu())
+        for j in range(max(len(p) for p in picks) - 1):
+            act = torch.tensor([j + 1 < len(p) for p in picks], device=dev)
+            feed = torch.tensor([[p[j] if j + 1 < len(p) else 0] for p in picks],
+                                dtype=torch.int32, device=dev)
+            logits, cache, _ = LL.forward_step(lm.weights, cache, feed, sl, act,
+                                               cfg, rot_cache=True)
+            rows.append(logits.cpu())
+    finally:
+        W.set_qmatmul_impl(None)
+        LL.set_attention_impl(None)
+    ties, n_picks = [], 0
+    for i, p in enumerate(picks):
+        sampler = served_sampler(lm, tok, i)
+        for t in prompts[i]:
+            sampler.accept(t, apply_grammar=False)
+        for j, served in enumerate(p):
+            row = rows[j][i].numpy().copy()
+            m = float(np.abs(row).max())
+            sampler._apply_penalties(row)
+            top = int(row.argmax())
+            if top != served:
+                gap = float(abs(row[top] - row[served])) / m
+                log(f"{label}: request {i} served {served} at generated token "
+                    f"{j}, the plain run picks {top}: penalized logits' gap "
+                    f"{gap:.3e} of max |logit| (bound {bound:.3e})")
+                if gap > bound:
+                    raise AssertionError(f"{label}: request {i} differs from "
+                                         "the twins beyond a near-tie")
+                ties.append((i, j, gap))
+            sampler.accept(served, apply_grammar=False)
+            n_picks += 1
+    log(f"{label}: {n_picks} served picks of {n} requests teacher-forced "
+        f"through the twins and attention_reference ({kind} KV): the plain "
+        f"run picks each, {len(ties)} near-ties aside")
+    return dict(picks=n_picks, ties=ties, bound=bound)
+
+
+def family_phase(tmp: str, smi: str, timer: Timer) -> tuple[dict, list, dict]:
+    """The four families of tools/family_gguf.py at their published widths,
+    cut to FAM_LAYERS layers: the kernels at their shapes
+    (family_kernel_rows); then for each family its file, written from seed
+    0 and loaded on the card, family_model_checks, and (FAM_SERVED) a
+    served cycle whose tokens are held to the twins (served_through_twins
+    at the family's model_qmm_run bound); the q8_0 cycle must shift a
+    quantized "dt" context on the card. Returns (result, kernel rows,
+    launches of the family models' runs and served cycles: each counted
+    from zero)."""
+    from tpu_engine_torch.model.loader import load_model
+
+    t_phase = time.time()
+    rows = family_kernel_rows(timer, smi)
+    out, launches = {}, dict.fromkeys(SOURCES, 0)
+    srv, th, base = start_server()
+    try:
+        for family in FAM_ORDER:
+            fam = FG.FAMILIES[family]
+            path = os.path.join(tmp, f"{family}-{FAM_LAYERS}l-q4_k_m.gguf")
+            t0 = time.time()
+            FG.build_family_gguf(path, family, n_layer=FAM_LAYERS, seed=0)
+            t1 = time.time()
+            lm = load_model(path, device="cuda")
+            torch.cuda.synchronize()
+            log(f"family {family}: wrote {path} ({os.path.getsize(path) / 1e9:.2f}"
+                f" GB, Q4_K_M mix, {fam.source} widths, {FAM_LAYERS} layers: "
+                f"depth cut from {fam.widths.n_layer}) in {t1 - t0:.1f}s, "
+                f"loaded in {time.time() - t1:.1f}s")
+            zero_launches()
+            res = family_model_checks(family, lm)
+            res["launches"] = {**DM.LAUNCHES, **FA.LAUNCHES}
+            log(f"family {family}: launches over its model checks "
+                f"{res['launches']}")
+            counted = [res]
+            kind = FAM_SERVED.get(family)
+            if kind:
+                log(f"family {family}: served cycle at {kind} (the server "
+                    f"{kind} lines that follow)")
+                shifts, real_shift = [], OPS.shift_compact
+                OPS.shift_compact = counting_shift(shifts)
+                try:
+                    cyc = server_cycle(srv, base, path, lm.tokenizer, kind, smi)
+                finally:
+                    OPS.shift_compact = real_shift
+                cyc["context_shifts"] = shifts
+                log(f"family {family} {kind} served: context shifts (kind, "
+                    f"layout, device, no re-rope) {shifts}")
+                if kind == "q8_0" and ("q8_0", "dt", "cuda", False) not in shifts:
+                    raise AssertionError(f"family {family}: no context shift "
+                                         "of the quantized dt cache on the card")
+                cyc["twins"] = served_through_twins(
+                    lm, lm.tokenizer, f"family {family} {kind} served", kind,
+                    cyc, res["qmm"]["bound"])
+                res["served"] = cyc
+                counted.append(cyc)
+            for c in counted:
+                for k in launches:
+                    launches[k] += c["launches"][k]
+            out[family] = res
+            del lm
+            os.remove(path)
+            torch.cuda.empty_cache()
+    finally:
+        stop_server(srv, th)
+    idle = sorted({r["kernel"] for r in rows if not launches[r["kernel"]]})
+    if idle:
+        raise AssertionError(f"families: kernels not launched by the family "
+                             f"runs: {idle}")
+    out["launches"] = launches
+    out["wall_s"] = time.time() - t_phase
+    log(f"families: launches of the model checks and served cycles "
+        f"{launches}; the phase in {out['wall_s']:.1f}s [{smi}]")
+    return out, rows, launches
+
+
 FA_SRC = "tpu_engine/kernels/flash_attention.py"
 SOURCES = {  # kernel -> (source, the TPU kernel(s) it replaces)
     "qmm_nib4": ("tpu_engine_torch/csrc/qmm.cu",
@@ -2587,7 +2920,8 @@ def _sum_rows(sel: list[tuple[dict, int]]) -> dict:
                 library_ms=sum(r["library_ms"] * c for r, c in sel))
 
 
-def summarize(rows: list[dict], launches: dict, tp_launches: dict) -> list[dict]:
+def summarize(rows: list[dict], launches: dict, tp_launches: dict,
+              fam_rows: list[dict], fam_launches: dict) -> list[dict]:
     """One line per kernel: the main-path shape set of a decode step for the
     projections (M=8, summed over the layer's tensors of that kernel); for
     attention the row attn_cases marks (B=8 KH=32 decode at fills 1..511
@@ -2597,7 +2931,9 @@ def summarize(rows: list[dict], launches: dict, tp_launches: dict) -> list[dict]
     bucket of ENC_MS, with library_ms cuBLAS bf16 on the same shapes.
     Then a line "<kernel> tp2" for each kernel at a TP=2 rank's shapes
     (PAR_QMM, PAR_ATTN), its launches those of the TP=2 runs (tp_launches:
-    rank 0's and its follower's)."""
+    rank 0's and its follower's), and a line "<kernel> families" for each
+    kernel at the family phase's shapes (fam_rows: FAM_QMM, FAM_ATTN), its
+    launches those of the family models' runs and served cycles."""
     out = []
     for name, (src, repl) in SOURCES.items():
         if name.startswith("qmm"):
@@ -2622,15 +2958,18 @@ def summarize(rows: list[dict], launches: dict, tp_launches: dict) -> list[dict]
                                              for r, c in enc)
                     line["encoder"].append(dict(layer=layer, M=m, **summ))
         out.append(line)
-    for name, (src, repl) in SOURCES.items():
-        sel = [r for r in rows if r.get("tp") and r["kernel"] == name]
-        if sel:
-            out.append(dict(
-                name=f"{name} tp2", route="cuda", source=src, replaces=repl,
-                launches=int(tp_launches[name]),
-                max_abs_err=max(r["max_abs_err"] for r in sel),
-                **_sum_rows([(r, 1) for r in sel]),
-                shapes="; ".join(r["shape"] for r in sel)))
+    for sfx, sub, counts in (("tp2", [r for r in rows if r.get("tp")],
+                              tp_launches),
+                             ("families", fam_rows, fam_launches)):
+        for name, (src, repl) in SOURCES.items():
+            sel = [r for r in sub if r["kernel"] == name]
+            if sel:
+                out.append(dict(
+                    name=f"{name} {sfx}", route="cuda", source=src,
+                    replaces=repl, launches=int(counts[name]),
+                    max_abs_err=max(r["max_abs_err"] for r in sel),
+                    **_sum_rows([(r, 1) for r in sel]),
+                    shapes="; ".join(r["shape"] for r in sel)))
     return out
 
 
@@ -2708,6 +3047,9 @@ def main() -> int:
         detail["chat"] = chat_phase(path, lm)
         detail["multimodal"] = multimodal_phase(tmp, path, lm, smi)
         del lm
+        detail["families"], fam_rows, fam_launches = family_phase(
+            tmp, smi, Timer(ITERS))
+        detail["family_kernel_rows"] = fam_rows
     # launches of the main path: the five server cycles and the three
     # embedding cycles, each counted from zero at its /loadmodel to its
     # /unloadmodel; the perplexity evaluations and the in-process chat,
@@ -2731,7 +3073,8 @@ def main() -> int:
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:
         json.dump(detail, fh, indent=1)
-    print(json.dumps({"kernels": summarize(rows, launches, tp_launches)}),
+    print(json.dumps({"kernels": summarize(rows, launches, tp_launches,
+                                           fam_rows, fam_launches)}),
           flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -53,6 +53,21 @@ def add_tokenizer_metadata(w: GGUFWriter, tok_md: dict) -> None:
             w.add(key, val)
 
 
+def llama3_rope_factors(head_dim: int, base: float, factor: float,
+                        low_ff: float, high_ff: float, old_ctx: int) -> np.ndarray:
+    """rope_freqs.weight of the llama3 rule (ggml freq_factors): each
+    pair's divisor of its inverse frequency."""
+    freqs = 1.0 / base ** (np.arange(0, head_dim, 2, dtype=np.float64) / head_dim)
+    wavelen = 2 * np.pi / freqs
+    low_wl, high_wl = old_ctx / low_ff, old_ctx / high_ff
+    smooth = (old_ctx / wavelen - low_ff) / (high_ff - low_ff)
+    return np.where(
+        wavelen < high_wl, 1.0,
+        np.where(wavelen > low_wl, factor,
+                 1.0 / ((1.0 - smooth) / factor + smooth))
+    ).astype(np.float32)
+
+
 def hf_llama_to_gguf(
     hf_model,
     out_path: str,
@@ -109,21 +124,12 @@ def hf_llama_to_gguf(
         w.add(f"{gguf_arch}.rope.scaling.original_context_length",
               int(rs["original_max_position_embeddings"]))
     elif rtype == "llama3":
-        factor = float(rs.get("factor", 8.0))
-        low_ff = float(rs.get("low_freq_factor", 1.0))
-        high_ff = float(rs.get("high_freq_factor", 4.0))
-        old_ctx = int(rs.get("original_max_position_embeddings", 8192))
-        base = float(getattr(cfg, "rope_theta", 10000.0))
-        hd = getattr(cfg, "head_dim", None) or cfg.hidden_size // n_head
-        freqs = 1.0 / base ** (np.arange(0, hd, 2, dtype=np.float64) / hd)
-        wavelen = 2 * np.pi / freqs
-        low_wl, high_wl = old_ctx / low_ff, old_ctx / high_ff
-        smooth = (old_ctx / wavelen - low_ff) / (high_ff - low_ff)
-        rope_factors = np.where(
-            wavelen < high_wl, 1.0,
-            np.where(wavelen > low_wl, factor,
-                     1.0 / ((1.0 - smooth) / factor + smooth))
-        ).astype(np.float32)
+        rope_factors = llama3_rope_factors(
+            getattr(cfg, "head_dim", None) or cfg.hidden_size // n_head,
+            float(getattr(cfg, "rope_theta", 10000.0)),
+            float(rs.get("factor", 8.0)), float(rs.get("low_freq_factor", 1.0)),
+            float(rs.get("high_freq_factor", 4.0)),
+            int(rs.get("original_max_position_embeddings", 8192)))
 
     if tokenizer_metadata:
         add_tokenizer_metadata(w, tokenizer_metadata)
