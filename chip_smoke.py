@@ -56,8 +56,23 @@ the card, held as the Llama model is (model_qmm_run, near-ties allowed;
 attn_model_run at f16 and q8_0 KV; gemma2 and phi3 past their windows,
 and apart from the run with the window off), and gemma2 (f16) and qwen2
 (q8_0, with a context shift) served through /loadmodel, each served
-token teacher-forced through the twins. Any failure raises and exits
-non-zero. The last lines are the kernel table as
+token teacher-forced through the twins. Then the grid phase, with seeds
+of its own (two ranks on cuda:0 over gloo): qmm_nib4 / qmm_i8 at a TP=2
+phi3 rank's shapes; phi3 (written again by the family phase's writer)
+at TP=2, its logits against one rank and a served tensor_parallel 2
+cycle against a 1x1 cycle token by token; llava-1.5 image chats (the
+multimodal phase's mmproj and image) at tensor_parallel 2 and
+data_parallel 2 against 1x1; nomic-embed at tensor_parallel 2, served
+whole with no process and equal bit for bit; the Llama model as an
+embedding model at TP=2 and DP=2 against 1x1. Then the sampling phase,
+with seeds of its own: the device sampler's kept candidate sets and
+probabilities on the Llama model's prefill rows against the host chain
+(with and without penalties over a filled ring), 65536 draws from one
+row against the host's probabilities, a served burst of 8 that mixes
+the lanes (free requests, a grammar in the device bank, a json_schema,
+a recursive grammar, a seed, logprobs), each request's lane checked,
+and a data_parallel 2 cycle at temperature 0.8 against 1x1 with the
+sampler seed fixed. Any failure raises and exits non-zero. The last lines are the kernel table as
 one JSON object, the card's name and power limit from nvidia-smi, and
 {"ok": true, "device": {...}}. Per-shape details go to
 chiprun_out/chip_smoke.json.
@@ -778,6 +793,15 @@ def zero_launches() -> None:
     multihost.FOLLOWER_LAUNCHES.clear()
 
 
+def grid_launches() -> dict:
+    """This process's kernel launches plus those its grids' followers
+    reported at /unloadmodel."""
+    from tpu_engine_torch.dist import multihost
+
+    return {k: n + multihost.FOLLOWER_LAUNCHES.get(k, 0)
+            for k, n in {**DM.LAUNCHES, **FA.LAUNCHES}.items()}
+
+
 def start_server(devices=None, backend=None):
     """The port's HTTP server on a free localhost port, in a thread:
     (server, thread, base URL). devices / backend: a grid's ranks."""
@@ -1101,7 +1125,8 @@ def counting_shift(shifts: list):
 SERVED_PROMPTS = [20, 60, 110, 160, 210, 270, 330, 400]  # prompt tokens
 
 
-def server_cycle(srv, base, path, tok, label, smi, grid=None) -> dict:
+def server_cycle(srv, base, path, tok, label, smi, grid=None,
+                 extra=None) -> dict:
     """/loadmodel at cache_type label ("+se": with grp_attn_n 4 and
     grp_attn_w 128) -> 8 concurrent chats (9 at q8_0 without a grid: one
     more whose ~480-token prompt plus 64 generated tokens crosses the
@@ -1111,7 +1136,9 @@ def server_cycle(srv, base, path, tok, label, smi, grid=None) -> dict:
     {"tensor_parallel": 2}) include its followers'. With a grid, the
     ranks' state must agree (verify_state) and every follower must have
     exited after /unloadmodel. Each request's generated token ids are
-    read from the engine's slots."""
+    read from the engine's slots. extra(engine), if given, runs after the
+    chats (and verify_state), before /unloadmodel; its result is the
+    cycle's "extra"."""
     from tpu_engine_torch.dist import multihost
 
     cache_type = label.split("+")[0]
@@ -1232,6 +1259,7 @@ def server_cycle(srv, base, path, tok, label, smi, grid=None) -> dict:
         log(f"server {label}: verify_state ok: every rank sampled the same "
             f"{state['tokens']} tokens and computed the same logits bit for "
             f"bit at every step")
+    extra_out = None if extra is None else extra(engine)
     del engine, entry
     status, resp = _post(base, "/unloadmodel", {"model": "smoke"})
     if status != 200:
@@ -1240,8 +1268,7 @@ def server_cycle(srv, base, path, tok, label, smi, grid=None) -> dict:
 
     if any(p.is_alive() for p in procs) or multiprocessing.active_children():
         raise AssertionError(f"{label}: a process outlived /unloadmodel")
-    launches = {k: n + multihost.FOLLOWER_LAUNCHES.get(k, 0)
-                for k, n in {**DM.LAUNCHES, **FA.LAUNCHES}.items()}
+    launches = grid_launches()
     chat = {k: after_chat[k] - after_load[k] for k in launches}
     log(f"server {label}: launches over the cycle {launches}; during the "
         f"chat burst {chat}")
@@ -1263,7 +1290,8 @@ def server_cycle(srv, base, path, tok, label, smi, grid=None) -> dict:
     return dict(launches=launches, chat_launches=chat, load_s=t_load,
                 wall_s=wall, requests=len(bodies),
                 completion_tokens=total_completion, tok_s=tps, ttft_s=ttfts,
-                prompt_ids=ids, generated=generated, state=state)
+                prompt_ids=ids, generated=generated, state=state,
+                extra=extra_out)
 
 
 def _prompt_ids(tok, body) -> list[int]:
@@ -2313,6 +2341,45 @@ def _par_follower(out: str, *args) -> None:
                 if k not in ("tp", "tp_q8_0", "dp")}, out)
 
 
+def grid_bounds(lm, prompt, feed, kind: str, label: str = "parallel"):
+    """The one-rank logits of prompt then feed (teacher-forced) over a
+    `kind` KV cache on the kernels ([steps + 1, V]), and two bounds of
+    max |dlogit| / max |logit| against them: a grid's (twice the twins'
+    spread under reordered sums, or LOGIT_TOL) and a served run's (also
+    twice the spread of the engine's schedule)."""
+    cfg, dev = lm.cfg, PAR_DEVICES[0]
+
+    def run(chunk=512):
+        return tf_logits(LL.forward_step, lm.weights, cfg,
+                         _kv_cache(cfg, 1, 1024, dev, kind), [prompt],
+                         len(feed), feed=feed, chunk=chunk)[0]
+
+    # a served prompt's logits also follow the engine's schedule: a
+    # chunk's own rows are attended in flight (f32), earlier chunks'
+    # as stored (bf16, or q8_0). Spread of that: the prompt in one
+    # chunk against chunks of 16, on the kernels
+    one, c16 = run(), run(chunk=16)
+    chunked = float((c16 - one).abs().max()) / float(one.abs().max())
+    twins = {}
+    try:
+        LL.set_attention_impl(LL.attention_reference)
+        for name, fn in (("twin", DM.qmatmul_twin),
+                         ("reordered", twin_reordered)):
+            W.set_qmatmul_impl(fn)
+            twins[name] = run()
+    finally:
+        W.set_qmatmul_impl(None)
+        LL.set_attention_impl(None)
+    floor = float((twins["reordered"] - twins["twin"]).abs().max()) / \
+        float(twins["twin"].abs().max())
+    bound = max(LOGIT_TOL, 2 * floor)
+    served = max(bound, 2 * chunked)
+    log(f"{label}: at {kind} KV the twins' reordered floor {floor:.3e} "
+        f"(bound {bound:.3e}); chunks of 16 against one chunk "
+        f"{chunked:.3e} (served bound {served:.3e})")
+    return one[:, 0], bound, served
+
+
 def held(label: str, got, ref, bound: float) -> dict:
     """got against ref (logits [..., V]): max |dlogit| / max |logit| within
     bound, and top-1 equal on every row except where ref's logits at the
@@ -2432,6 +2499,22 @@ def one_by_one_cycle(lm, tok, smi: str) -> dict:
     return out["1x1 mesh"]
 
 
+@contextlib.contextmanager
+def decode_chunk(n: int):
+    """The engines' decode chunk (TPU_ENGINE_DECODE_CHUNK) set to n: a
+    grid's warm-up decodes a chunk a prompt bucket, each step waiting on
+    2 * n_layer + 1 all_reduces over gloo."""
+    old = os.environ.get("TPU_ENGINE_DECODE_CHUNK")
+    os.environ["TPU_ENGINE_DECODE_CHUNK"] = str(n)
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("TPU_ENGINE_DECODE_CHUNK", None)
+        else:
+            os.environ["TPU_ENGINE_DECODE_CHUNK"] = old
+
+
 def parallel_phase(path: str, tmp: str, smi: str, ref_cycles: dict) -> dict:
     """Tensor and data parallelism on the one card: two ranks (processes)
     on cuda:0 over gloo. The model checks (TP=2 and DP=2 against one
@@ -2464,44 +2547,13 @@ def parallel_phase(path: str, tmp: str, smi: str, ref_cycles: dict) -> dict:
     # edge of its row's quantization), or LOGIT_TOL
     bounds, served, refs = {}, {}, {}
     for kind in ("f16", "q8_0"):
-        # a served prompt's logits also follow the engine's schedule: a
-        # chunk's own rows are attended in flight (f32), earlier chunks'
-        # as stored (bf16, or q8_0). Spread of that: the prompt in one
-        # chunk against chunks of 16, on the kernels
-        one, _ = tf_logits(LL.forward_step, lm.weights, cfg,
-                           _kv_cache(cfg, 1, 1024, dev, kind), [tp_prompt],
-                           TP_STEPS, feed=tp_feed)
-        c16, _ = tf_logits(LL.forward_step, lm.weights, cfg,
-                           _kv_cache(cfg, 1, 1024, dev, kind), [tp_prompt],
-                           TP_STEPS, feed=tp_feed, chunk=16)
-        chunked = float((c16 - one).abs().max()) / float(one.abs().max())
-        refs[kind] = one[:, 0]
-        twins = {}
-        try:
-            LL.set_attention_impl(LL.attention_reference)
-            for name, fn in (("twin", DM.qmatmul_twin),
-                             ("reordered", twin_reordered)):
-                W.set_qmatmul_impl(fn)
-                twins[name], _ = tf_logits(
-                    LL.forward_step, lm.weights, cfg,
-                    _kv_cache(cfg, 1, 1024, dev, kind), [tp_prompt],
-                    TP_STEPS, feed=tp_feed)
-        finally:
-            W.set_qmatmul_impl(None)
-            LL.set_attention_impl(None)
-        floor = float((twins["reordered"] - twins["twin"]).abs().max()) / \
-            float(twins["twin"].abs().max())
-        bounds[kind] = max(LOGIT_TOL, 2 * floor)
-        served[kind] = max(bounds[kind], 2 * chunked)
-        log(f"parallel: at {kind} KV the twins' reordered floor {floor:.3e} "
-            f"(bound {bounds[kind]:.3e}); chunks of 16 against one chunk "
-            f"{chunked:.3e} (served bound {served[kind]:.3e})")
+        refs[kind], bounds[kind], served[kind] = grid_bounds(
+            lm, tp_prompt, tp_feed, kind)
     bound = bounds["f16"]
     out["bounds"], out["served_bounds"] = bounds, served
     log(f"parallel: one-rank references ({TP_PROMPT} + {TP_STEPS} tokens; 8 "
         f"slots of {DP_PROMPT} + {DP_STEPS}) and the floors in "
         f"{time.time() - t0:.1f}s")
-    del twins
     store = os.path.join(tmp, "par_store")
     fout = os.path.join(tmp, "par_follower.pt")
     args = (PAR_DEVICES, store, path, tp_prompt, tp_feed, dp_prompts, dp_feed)
@@ -2558,26 +2610,19 @@ def parallel_phase(path: str, tmp: str, smi: str, ref_cycles: dict) -> dict:
     tok = Tokenizer.from_gguf_metadata(g.metadata)
     g.close()
     srv, th, base = start_server(devices=PAR_DEVICES, backend="gloo")
-    # decode chunks of 16 (the engine's knob; the 1x1 cycles ran 128): a
-    # grid's warm-up decodes a chunk a prompt bucket, and each of its
-    # steps waits on 2 * n_layer + 1 all_reduces over gloo
-    chunk_env = os.environ.get("TPU_ENGINE_DECODE_CHUNK")
-    os.environ["TPU_ENGINE_DECODE_CHUNK"] = "16"
     try:
-        for label, kind, grid in (("tp2 f16", "f16", {"tensor_parallel": 2}),
-                                  ("tp2 q8_0", "q8_0", {"tensor_parallel": 2}),
-                                  ("dp2 f16", "f16", {"data_parallel": 2})):
-            cyc = server_cycle(srv, base, path, tok, kind, smi, grid=grid)
-            cyc["ties"] = trace_served(lm, tok, label, kind, ref_cycles[kind],
-                                       cyc, served[kind])
-            log(f"parallel {label}: texts of the 1x1 {kind} cycle, "
-                f"{len(cyc['ties'])} requests traced to a near-tie")
-            out[label] = cyc
+        with decode_chunk(16):  # the 1x1 cycles ran 128
+            for label, kind, grid in (
+                    ("tp2 f16", "f16", {"tensor_parallel": 2}),
+                    ("tp2 q8_0", "q8_0", {"tensor_parallel": 2}),
+                    ("dp2 f16", "f16", {"data_parallel": 2})):
+                cyc = server_cycle(srv, base, path, tok, kind, smi, grid=grid)
+                cyc["ties"] = trace_served(lm, tok, label, kind,
+                                           ref_cycles[kind], cyc, served[kind])
+                log(f"parallel {label}: texts of the 1x1 {kind} cycle, "
+                    f"{len(cyc['ties'])} requests traced to a near-tie")
+                out[label] = cyc
     finally:
-        if chunk_env is None:
-            os.environ.pop("TPU_ENGINE_DECODE_CHUNK", None)
-        else:
-            os.environ["TPU_ENGINE_DECODE_CHUNK"] = chunk_env
         stop_server(srv, th)
     out["1x1 mesh"] = one_by_one_cycle(lm, tok, smi)
     del lm
@@ -2876,6 +2921,917 @@ def family_phase(tmp: str, smi: str, timer: Timer) -> tuple[dict, list, dict]:
     return out, rows, launches
 
 
+# ---------------------------------------------------------- grids, more
+GRID_SEED = 16     # the grid additions' own torch and numpy seeds
+PHI_PROMPT, PHI_STEPS = 256, 32  # phi3 TP=2 check: teacher-forced
+# a TP=2 phi3 rank's products (M=8, a decode step; Phi-3-mini widths): the
+# Q5_K q, k and v slices fused again (3 x 1536 rows), gate|up (2 x 4096
+# rows), wo and w_down at half their columns, the head at half its rows
+PHI_TP_QMM = [
+    ("phi3 wqkv Q5_K", "i8", 32, True, 4608, 3072),
+    ("phi3 wo Q4_K", "nib4", 32, True, 3072, 1536),
+    ("phi3 w_gateup Q4_K", "nib4", 32, True, 8192, 3072),
+    ("phi3 w_down Q4_K", "nib4", 32, True, 3072, 4096),
+    ("phi3 w_down Q6_K", "i8", 16, False, 3072, 4096),
+    ("phi3 output Q6_K", "i8", 16, False, 16032, 3072),
+]
+MM_CHAT_TOKENS = 16  # generated tokens of the grids' image chats
+MM_N_BATCH = 100     # the grids' image chats: 576 image rows prefill in
+                     # chunks of 100 and 76 (no bucket), text in buckets
+                     # up to 64 (a grid's warm-up runs each bucket)
+
+
+def phi3_tp_kernel_rows(timer: Timer, gen, smi: str) -> list[dict]:
+    """qmm_nib4 and qmm_i8 at a TP=2 phi3 rank's shapes (PHI_TP_QMM)
+    against their twins, equal bits on repeat, timed (rows marked
+    phi3_tp)."""
+    rows = []
+    for name, kind, group, has_bias, n, k in PHI_TP_QMM:
+        qt = rand_qtensor(gen, name, n, k, kind, group, has_bias)
+        w_f32 = W.dequant(qt)
+        x = torch.randn((8, k), generator=gen, device="cuda")
+        rows.append(dict(qmm_timed_row(timer, name + " (TP=2 rank)", qt, x,
+                                       w_f32, w_f32.to(torch.bfloat16), smi),
+                         phi3_tp=True))
+        del qt, w_f32
+    torch.cuda.empty_cache()
+    return rows
+
+
+def engine_logits(engine, prompt, feed) -> dict:
+    """prompt then feed (teacher-forced) through a served engine's own
+    ops (a grid's leader: every op replays on the followers) in slot 0,
+    emptied before and after, on the engine's loop: logits [steps + 1, V]
+    as tf_logits gives them, and rank 0's layer-0 weight shapes, kv heads
+    and cache layout."""
+    ops = engine.ops
+
+    def run():
+        ops.trim(0, 0)
+        for off in range(0, len(prompt), 512):
+            c = prompt[off:off + 512]
+            logits, _ = ops.step([c], [0], [True], n_valid=[len(c)])
+        rows = [logits[0]]
+        for t in feed:
+            logits, _ = ops.step([t], [0], [True])
+            rows.append(logits[0])
+        ops.trim(0, 0)
+        return torch.stack(rows).float()
+
+    logits = engine._call_on_loop(run)
+    torch.cuda.synchronize()
+    lw = engine.model.weights["layers"][0]
+    return dict(logits=logits, layout=ops.cache.layout,
+                kv_heads=int(ops.cache.k.shape[2]),
+                shapes={k: list(v.shape) for k, v in lw.items()
+                        if isinstance(v, W.QTensor)})
+
+
+def no_process_left(label: str) -> None:
+    import multiprocessing
+
+    if multiprocessing.active_children():
+        raise AssertionError(f"{label}: a process outlived /unloadmodel: "
+                             f"{multiprocessing.active_children()}")
+
+
+@contextlib.contextmanager
+def kept_tokens():
+    """{n_predict: generated token ids} of each request, kept as its slot is
+    released (the requests of one cycle differ in max_tokens)."""
+    from tpu_engine_torch.serve.slot import Slot
+
+    kept, release = {}, Slot.release
+
+    def keep(slot):
+        kept[slot.params.n_predict] = list(slot.generated_tokens)
+        release(slot)
+
+    Slot.release = keep
+    try:
+        yield kept
+    finally:
+        Slot.release = release
+
+
+def phi3_grid(tmp: str, smi: str, srv, base) -> dict:
+    """phi3 at its published widths (tools/family_gguf.py, the family
+    phase's writer and seed, 2 layers) served at tensor_parallel 2 (f16,
+    "dt" KV at D=96): the cycle held token by token to a 1x1 cycle
+    (near-ties traced as trace_served does), then, in the same grid, the
+    ranks' logits of a teacher-forced prompt against one rank's by the
+    parallel phase's rule (engine_logits)."""
+    from tpu_engine_torch.model.loader import load_model
+
+    path = os.path.join(tmp, f"phi3-{FAM_LAYERS}l-q4_k_m.gguf")
+    t0 = time.time()
+    FG.build_family_gguf(path, "phi3", n_layer=FAM_LAYERS, seed=0)
+    lm = load_model(path, device=PAR_DEVICES[0])
+    cfg, tok = lm.cfg, lm.tokenizer
+    log(f"grids: wrote and loaded {path} in {time.time() - t0:.1f}s")
+    rng = np.random.default_rng([GRID_SEED, 0])
+    prompt = rng.integers(300, cfg.n_vocab, PHI_PROMPT).tolist()
+    feed = rng.integers(300, cfg.n_vocab, (PHI_STEPS, 1)).tolist()
+    ref, bound, served = grid_bounds(lm, prompt, feed, "f16", "grids phi3")
+    with decode_chunk(16):
+        one = server_cycle(srv, base, path, tok, "f16", smi)
+        cyc = server_cycle(srv, base, path, tok, "f16", smi,
+                           grid={"tensor_parallel": 2},
+                           extra=lambda eng: engine_logits(eng, prompt, feed))
+    cyc["ties"] = trace_served(lm, tok, "phi3 tp2 f16", "f16", one, cyc,
+                               served)
+    res = cyc.pop("extra")
+    log(f"grids phi3 TP=2: rank 0 shapes {res['shapes']}, "
+        f"{res['kv_heads']} kv heads a rank ({res['layout']})")
+    lw = res["shapes"]
+    H, KH, D = cfg.n_head, cfg.n_kv_head, cfg.head_dim
+    if (res["kv_heads"], res["layout"], lw["wqkv"][0], lw["w_gateup"][0]) != (
+            KH // 2, "dt", (H + 2 * KH) * D // 2, cfg.n_ff):
+        raise AssertionError("grids phi3: a rank's shapes are not its part")
+    out = {"tp2": held(f"phi3 TP=2 (teacher-forced in the served grid, "
+                       f"{PHI_PROMPT} + {PHI_STEPS} tokens)", res["logits"],
+                       ref, bound),
+           "bound": bound, "served_bound": served}
+    log(f"grids phi3 tp2 f16 served: the 1x1 cycle's tokens, "
+        f"{len(cyc['ties'])} requests traced to a near-tie")
+    out["1x1 f16"], out["tp2 f16"] = one, cyc
+    del lm
+    os.remove(path)
+    torch.cuda.empty_cache()
+    return out
+
+
+def mm_chat_body(png: bytes) -> dict:
+    """A greedy image chat without repeat penalties (so a near-tie is read
+    from the plain logits), MM_CHAT_TOKENS tokens."""
+    return {"model": "llava", "max_tokens": MM_CHAT_TOKENS, "temperature": 0,
+            "repeat_penalty": 1.0, "messages": [{"role": "user", "content": [
+                {"type": "text", "text": "what is in "},
+                {"type": "image_url", "image_url": {
+                    "url": "data:image/png;base64,"
+                           + base64.b64encode(png).decode()}},
+                {"type": "text", "text": " this picture?"}]}]}
+
+
+def mm_trace(lm, clip, body: dict, ref: list, got: list, bound: float,
+             label: str):
+    """ref (the 1x1 image chat's tokens) against got (a grid's): equal, or
+    at the first token where they part the one-rank kernels' logits after
+    the shared prefix (prompt_run over the engine's segments) at the two
+    picks lie within bound of max |logit|. Returns the tie or None."""
+    from tpu_engine_torch.api.openai import ModelPrompts, parse_chat_request
+    from tpu_engine_torch.clipvit.model import encode_image
+
+    if ref == got:
+        return None
+    j = next((n for n, (x, y) in enumerate(zip(ref, got)) if x != y),
+             min(len(ref), len(got)))
+    params, _ = parse_chat_request(body, ModelPrompts(), True)
+    tok, segs = lm.tokenizer, []
+    for n, part in enumerate(re.split(r"\[img-(\d+)\]", params.prompt)):
+        if n % 2:
+            segs.append(("i", encode_image(clip, params.images[int(part)])))
+        elif part:
+            segs.append(("t", tok.encode(part, add_special=n == 0,
+                                         parse_special=True)))
+    n_cells = sum(len(d) for _, d in segs)
+    feed = (ref + [0] * 16)[:16]
+    rows, _ = prompt_run(lm, segs, n_cells + 32)("f16", dict(rot_cache=True),
+                                                 feed=feed)
+    row = rows[j].cpu().numpy()
+    eos = tok.eos_id
+    ta, tb = (ref[j] if j < len(ref) else eos), (got[j] if j < len(got) else eos)
+    gap = float(abs(row[ta] - row[tb])) / float(np.abs(row).max())
+    log(f"grids {label}: first differs at generated token {j}: {ta} (1x1) vs "
+        f"{tb}; one-rank logits' gap {gap:.3e} of max |logit| (bound "
+        f"{bound:.3e})")
+    if gap > bound:
+        raise AssertionError(f"grids {label}: differs from the 1x1 chat "
+                             "beyond a near-tie")
+    return (j, gap)
+
+
+def mm_grids(tmp: str, path: str, lm, srv, base, bound: float) -> dict:
+    """The llava-1.5 mmproj and 500x375 PNG of the multimodal phase (the
+    file it wrote; the image drawn again from its seed) served at 1x1, at
+    tensor_parallel 2 and at data_parallel 2: each grid's image chat held
+    to the 1x1 chat's tokens (mm_trace), the image's 576 rows prefilled
+    on every rank in chunks of MM_N_BATCH and the rest, no bucket
+    size."""
+    from tpu_engine_torch.clipvit.model import load_clip
+    from tpu_engine_torch.tools import mmproj_gguf as MG
+
+    mm_path = os.path.join(tmp, "mmproj-llava-1.5-7b-f16.gguf")
+    _, _, h, w, seed = MM_IMAGES[0]
+    png = MG.write_png(mm_image(seed, h, w))
+    body = mm_chat_body(png)
+    out = {}
+    for name, grid in (("1x1", {}), ("tp2", {"tensor_parallel": 2}),
+                       ("dp2", {"data_parallel": 2})):
+        zero_launches()
+        t0 = time.time()
+        status, resp = _post(base, "/loadmodel", {
+            "llama_model_path": path, "model": "llava", "mmproj": mm_path,
+            "cache_type": "f16", "n_parallel": 2, "ctx_len": 4096,
+            "n_batch": MM_N_BATCH, **grid})
+        if status != 200:
+            raise AssertionError(f"/loadmodel llava {name}: {status} {resp}")
+        t_load = time.time() - t0
+        entry = srv.registry.get("llava")
+        if entry.engine.clip is None or bool(entry.grid) != bool(grid):
+            raise AssertionError(f"llava {name}: clip {entry.engine.clip}, "
+                                 f"grid {entry.grid}")
+        del entry
+        with kept_tokens() as kept:
+            t0 = time.time()
+            status, resp = _post(base, "/v1/chat/completions", body)
+            latency = time.time() - t0
+        if status != 200:
+            raise AssertionError(f"llava {name}: chat {status} {resp}")
+        status, _ = _post(base, "/unloadmodel", {"model": "llava"})
+        no_process_left(f"llava {name}")
+        out[name] = dict(launches=grid_launches(), load_s=t_load,
+                         latency_s=latency, usage=resp["usage"],
+                         text=resp["choices"][0]["message"]["content"],
+                         generated=kept[MM_CHAT_TOKENS])
+        log(f"grids llava-1.5 {name}: /loadmodel {t_load:.1f}s, usage "
+            f"{resp['usage']}, latency {latency:.2f}s; "
+            f"{out[name]['text']!r}; launches {out[name]['launches']}")
+    clip = load_clip(mm_path, device="cuda")
+    for name in ("tp2", "dp2"):
+        if out[name]["usage"]["prompt_tokens"] != out["1x1"]["usage"][
+                "prompt_tokens"]:
+            raise AssertionError(f"llava {name}: usage {out[name]['usage']}")
+        out[name]["tie"] = mm_trace(lm, clip, body, out["1x1"]["generated"],
+                                    out[name]["generated"], bound,
+                                    f"llava-1.5 {name}")
+    del clip
+    torch.cuda.empty_cache()
+    return out
+
+
+def embedding_grids(tmp: str, path: str, srv, base, bound: float) -> dict:
+    """nomic-embed (the embedding phase's file) at tensor_parallel 2:
+    served whole, no process spawned, vectors equal to 1x1's bit for bit.
+    The Llama smoke model as model_type "embedding" at TP=2 (max |dv| /
+    max |v| within the TP logit bound) and DP=2 (equal to 1x1)."""
+    import multiprocessing
+
+    from tpu_engine_torch.serve.encoder import EncoderEngine
+
+    _, preset, level, _ = ENC_MODELS[1]
+    nomic = os.path.join(tmp, f"{preset}-{level}.gguf")
+    rng = np.random.default_rng([GRID_SEED, 1])
+    words = "the quick brown fox jumps over the lazy dog hello world".split()
+    out = {}
+    for label, model_path, grids, extra in (
+            ("nomic", nomic, ({}, {"tensor_parallel": 2}), {}),
+            ("llama", path, ({}, {"tensor_parallel": 2},
+                             {"data_parallel": 2}), {"n_parallel": 2})):
+        inputs = [" ".join(rng.choice(words, n)) for n in (8, 60, 150)]
+        vecs = {}
+        for grid in grids:
+            name = f"{label} {json.dumps(grid)}"
+            zero_launches()
+            status, resp = _post(base, "/loadmodel", {
+                "llama_model_path": model_path, "model": "e",
+                "model_type": "embedding", "ctx_len": 1024, **extra, **grid})
+            if status != 200:
+                raise AssertionError(f"/loadmodel {name}: {status} {resp}")
+            entry = srv.registry.get("e")
+            if label == "nomic" and (
+                    entry.grid is not None or multiprocessing.active_children()
+                    or not isinstance(entry.engine, EncoderEngine)
+                    or entry.engine.device.type != "cuda"):
+                raise AssertionError(f"{name}: not served whole on the card")
+            if label == "llama" and bool(entry.grid) != bool(grid):
+                raise AssertionError(f"{name}: grid {entry.grid}")
+            del entry
+            status, resp = _post(base, "/v1/embeddings",
+                                 {"model": "e", "input": inputs})
+            if status != 200:
+                raise AssertionError(f"{name} /v1/embeddings: {status} {resp}")
+            _post(base, "/unloadmodel", {"model": "e"})
+            no_process_left(name)
+            vecs[json.dumps(grid)] = np.asarray(
+                [d["embedding"] for d in resp["data"]], np.float64)
+            out[name] = dict(launches=grid_launches())
+        one = vecs["{}"]
+        for key, v in vecs.items():
+            if key == "{}":
+                continue
+            rel = float(np.abs(v - one).max() / np.abs(one).max())
+            exact = bool(np.array_equal(v, one))
+            tp = "tensor_parallel" in key
+            log(f"grids {label} embedding {key}: max |dv| / max |v| against "
+                f"1x1 {rel:.3e}, equal bits {exact} (need "
+                f"{'<= %.3e' % bound if tp and label == 'llama' else 'equal'})")
+            if not (rel <= bound if tp and label == "llama" else exact):
+                raise AssertionError(f"grids {label} embedding {key}: "
+                                     "vectors differ from 1x1")
+            out[f"{label} {key}"].update(rel_dv=rel, exact=exact)
+    return out
+
+
+def grid_phase(tmp: str, path: str, lm, smi: str, par: dict,
+               timer: Timer) -> tuple[dict, list, dict]:
+    """What grids serve beside the smoke model's text (C1, C2), on two ranks
+    sharing cuda:0 over gloo, with a torch generator and numpy seeds of
+    its own: qmm at a TP=2 phi3 rank's shapes; phi3 at TP=2 (phi3_grid);
+    llava-1.5 image chats at TP=2 and DP=2 (mm_grids); nomic-embed at
+    TP=2 and the smoke model as an embedding model at TP=2 and DP=2
+    (embedding_grids). Returns (result, kernel rows, launches of the phi3
+    TP=2 runs)."""
+    t_phase = time.time()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(GRID_SEED)
+    rows = phi3_tp_kernel_rows(timer, gen, smi)
+    out = {}
+    srv, th, base = start_server(devices=PAR_DEVICES, backend="gloo")
+    try:
+        out["phi3"] = phi3_grid(tmp, smi, srv, base)
+        with decode_chunk(16):
+            out["llava"] = mm_grids(tmp, path, lm, srv, base,
+                                    par["served_bounds"]["f16"])
+            out["embeddings"] = embedding_grids(tmp, path, srv, base,
+                                                par["bounds"]["f16"])
+    finally:
+        stop_server(srv, th)
+    phi = out["phi3"]
+    tp_launches = {k: phi["tp2 f16"]["launches"][k] for k in SOURCES}
+    idle = sorted({r["kernel"] for r in rows if not tp_launches[r["kernel"]]})
+    if idle:
+        raise AssertionError(f"grids: kernels not launched by phi3 at TP=2: "
+                             f"{idle}")
+    out["wall_s"] = time.time() - t_phase
+    log(f"grids: phi3 TP=2 launches {tp_launches}; the phase in "
+        f"{out['wall_s']:.1f}s [{smi}]")
+    return out, rows, tp_launches
+
+
+# -------------------------------------------------------------- sampling
+SAMP_SEED = 17     # the sampling phase's own torch and numpy seeds
+SAMP_TEMP = 0.8
+KEEP_TOL = 1e-6    # kept probabilities, card against the host chain
+N_DRAWS = 65536    # draws from one row, in batches of DRAW_ROWS
+DRAW_ROWS = 4096
+TV_TOL = 0.02      # total-variation distance of the draws (about 0.007
+                   # expected at N_DRAWS)
+LOGPROB_TOL = 1e-3  # nats: served logprobs against a direct run's
+GRAMMAR_DFA = 'root ::= "answer: " ("yes" | "no" | "maybe") "."\n'
+GRAMMAR_REC = 'root ::= item\nitem ::= "(" item ")" | [a-z]+\n'
+SCHEMA = {"type": "object", "properties": {
+    "answer": {"enum": ["yes", "no", "maybe"]}, "count": {"type": "integer"},
+    "sure": {"type": "boolean"}}, "required": ["answer", "count", "sure"]}
+
+
+def host_kept(row: np.ndarray, sp, ring: list) -> np.ndarray:
+    """The host chain's (sampling/chain.py Sampler) tempered probabilities
+    of one logits row after its penalties over ring, top_k, top_p, min_p:
+    zero outside the kept set."""
+    from tpu_engine_torch.sampling import Sampler
+    from tpu_engine_torch.sampling.chain import _softmax
+
+    s = Sampler(sp, row.size)
+    for t in ring:
+        s.accept(int(t), apply_grammar=False)
+    x = row.astype(np.float32).copy()
+    s._apply_penalties(x)
+    x = s._top_k(x, sp.top_k)
+    x = s._typical(x, sp.typical_p, sp.min_keep)
+    x = s._top_p(x, sp.top_p, sp.min_keep)
+    x = s._min_p(x, sp.min_p, sp.min_keep)
+    return _softmax(s._temp(x))
+
+
+def kept_sets(rows: torch.Tensor, sp, rings: list) -> dict:
+    """sample_step's candidate set on the card (filtered_logits, then
+    candidates: penalties over each row's ring, top_k, top_p, min_p)
+    against the host chain's on the same rows: the same tokens kept, and
+    their tempered probabilities within KEEP_TOL."""
+    from tpu_engine_torch.sampling import device as SD
+
+    S = rows.shape[0]
+    params = SD.params_from_host([sp] * S, device="cuda")
+    state = SD.DeviceSamplerState(
+        ring=SD.ring_from_tokens(rings, S, device="cuda"),
+        gen=SD.new_generator(SAMP_SEED, "cuda"),
+        gstate=torch.zeros((S,), dtype=torch.int32, device="cuda"))
+    v, idx = SD.candidates(SD.filtered_logits(rows, params, state), params)
+    pr = torch.softmax(v / sp.temperature, dim=-1).cpu().numpy()
+    v, idx = v.cpu().numpy(), idx.cpu().numpy()
+    host = rows.cpu().numpy()
+    worst, sizes = 0.0, []
+    for b in range(S):
+        want = host_kept(host[b], sp, rings[b])
+        keep = np.isfinite(v[b])
+        got = dict(zip(idx[b][keep].tolist(), pr[b][keep].tolist()))
+        if set(got) != set(np.nonzero(want)[0].tolist()):
+            raise AssertionError(f"sampling: row {b} keeps {sorted(got)} on "
+                                 f"the card, {np.nonzero(want)[0].tolist()} "
+                                 "on the host")
+        worst = max(worst, max(abs(p - want[t]) for t, p in got.items()))
+        sizes.append(len(got))
+    if worst > KEEP_TOL:
+        raise AssertionError(f"sampling: kept probabilities differ by "
+                             f"{worst:.3e} > {KEEP_TOL}")
+    return dict(kept=sizes, max_dp=float(worst))
+
+
+def draws_check(row: torch.Tensor, sp, want: np.ndarray) -> dict:
+    """N_DRAWS tokens from one row through sample_step on a CUDA generator
+    (batches of DRAW_ROWS copies of the row): none outside the host's kept
+    set, and the total-variation distance from its tempered probabilities
+    (want) within TV_TOL."""
+    from tpu_engine_torch.sampling import device as SD
+
+    V = row.shape[-1]
+    big = row[None, :].expand(DRAW_ROWS, V).contiguous()
+    params = SD.params_from_host([sp] * DRAW_ROWS, device="cuda")
+    gen = SD.new_generator(SAMP_SEED, "cuda")
+    counts = torch.zeros((V,), dtype=torch.int64, device="cuda")
+    for _ in range(N_DRAWS // DRAW_ROWS):
+        state = SD.new_state(DRAW_ROWS, device="cuda")
+        state.gen = gen
+        toks, _ = SD.sample_step(big, params, state)
+        counts += torch.bincount(toks.long(), minlength=V)
+    counts = counts.cpu().numpy()
+    outside = int(counts[want == 0].sum())
+    tv = 0.5 * float(np.abs(counts / N_DRAWS - want).sum())
+    log(f"sampling: {N_DRAWS} draws at temperature {sp.temperature} from one "
+        f"row ({int((want > 0).sum())} kept tokens): {outside} outside the "
+        f"host's kept set, total-variation distance {tv:.4f} (tol {TV_TOL})")
+    if outside or tv > TV_TOL:
+        raise AssertionError("sampling: the card's draws do not follow the "
+                             "host chain's probabilities")
+    return dict(outside=outside, tv=tv, kept=int((want > 0).sum()))
+
+
+def grammar_verdict(grammar: str, text: str):
+    """"full" when text is a whole sentence of the grammar, "prefix" when
+    it can still be extended into one, None when it cannot."""
+    from tpu_engine_torch.grammar.gbnf import GrammarMatcher, parse_gbnf
+
+    m = GrammarMatcher.__new__(GrammarMatcher)
+    m.bodies, m.root_id = parse_gbnf(grammar)
+    stacks = m._expand((("ref", m.root_id),))
+    for ch in text:
+        stacks = m._advance(stacks, ord(ch))
+        if not stacks:
+            return None
+    return "full" if any(not st for st in stacks) else "prefix"
+
+
+def schema_holds(obj) -> bool:
+    return (isinstance(obj, dict) and set(obj) == {"answer", "count", "sure"}
+            and obj["answer"] in ("yes", "no", "maybe")
+            and isinstance(obj["count"], int)
+            and isinstance(obj["sure"], bool))
+
+
+def lane_burst():
+    """The mixed burst: (expected lane, grammar to hold the text to, body)
+    for eight requests, each with its own max_tokens."""
+    from tpu_engine_torch.grammar import json_schema_to_grammar
+    from tpu_engine_torch.grammar.dfa import compile_byte_dfa
+
+    schema_g = json_schema_to_grammar(SCHEMA)
+    schema_lane = ("bank" if compile_byte_dfa(schema_g, 126) is not None
+                   else "host")
+    words = ["alpha", "beta", "gamma", "delta", "kappa", "sigma", "omega",
+             "theta"]
+
+    def chat(i, **kw):
+        return {"model": "samp", "max_tokens": 40 + i, "messages": [
+            {"role": "user", "content": f"{words[i]} {words[i]} tell me about "
+                                        f"{words[i]}"}], **kw}
+
+    return [
+        ("device", None, chat(0, temperature=SAMP_TEMP)),
+        ("device", None, chat(1, temperature=SAMP_TEMP, top_k=20,
+                              presence_penalty=0.5)),
+        ("device", None, chat(2, temperature=SAMP_TEMP,
+                              frequency_penalty=0.3, repeat_penalty=1.3)),
+        ("bank", GRAMMAR_DFA, chat(3, temperature=SAMP_TEMP,
+                                   grammar=GRAMMAR_DFA)),
+        (schema_lane, schema_g, chat(4, temperature=SAMP_TEMP,
+                                     response_format={
+                                         "type": "json_schema",
+                                         "json_schema": {"schema": SCHEMA}})),
+        ("host", GRAMMAR_REC, chat(5, temperature=SAMP_TEMP,
+                                   grammar=GRAMMAR_REC)),
+        ("host", None, chat(6, temperature=SAMP_TEMP, seed=1234)),
+        ("host", None, chat(7, temperature=0, repeat_penalty=1.0,
+                            logprobs=True, top_logprobs=5)),
+    ]
+
+
+def lane_burst_cycle(srv, base, path: str, lm, smi: str) -> dict:
+    """/loadmodel (8 slots, f16 KV, no prompt cache) -> the mixed burst at
+    once (lane_burst) -> the seeded request twice more, one after the
+    other, and the logprobs request alone -> /unloadmodel.
+    Each request's lane from its slot at launch (gstate: a bank row;
+    _on_device), grammar text its grammar accepts (whole at "stop", a
+    prefix at "length"), the json_schema object valid when whole, the
+    seeded repeats equal, and the logprobs request held to a direct
+    engine run (logprobs_check)."""
+    from tpu_engine_torch.serve.engine import InferenceEngine
+
+    burst = lane_burst()
+    lanes, launch = {}, InferenceEngine._launch_slot
+
+    def record(self, slot, task):
+        launch(self, slot, task)
+        lanes[task.params.n_predict] = (
+            "host" if not self._on_device(slot) else
+            "device" if slot.gstate is None else "bank")
+
+    zero_launches()
+    status, resp = _post(base, "/loadmodel", {
+        "llama_model_path": path, "model": "samp", "n_parallel": 8,
+        "ctx_len": 4096, "cache_type": "f16", "caching_enabled": False})
+    if status != 200:
+        raise AssertionError(f"/loadmodel sampling: {status} {resp}")
+    engine = srv.registry.get("samp").engine
+    chunks0, host0 = engine.n_chunks_dispatched, engine.n_host_steps
+    results = [None] * len(burst)
+
+    def worker(i):
+        results[i] = _post(base, "/v1/chat/completions", burst[i][2])
+
+    InferenceEngine._launch_slot = record
+    t0 = time.time()
+    try:
+        with kept_tokens() as kept:
+            ths = [threading.Thread(target=worker, args=(i,))
+                   for i in range(len(burst))]
+            for t in ths:
+                t.start()
+            for t in ths:
+                t.join()
+            wall = time.time() - t0
+            seeded = [_post(base, "/v1/chat/completions", burst[6][2])
+                      for _ in range(2)]
+            lone = _post(base, "/v1/chat/completions", burst[7][2])[1]
+    finally:
+        InferenceEngine._launch_slot = launch
+    chunks = engine.n_chunks_dispatched - chunks0
+    host_steps = engine.n_host_steps - host0
+    del engine
+    _post(base, "/unloadmodel", {"model": "samp"})
+    launches = {**DM.LAUNCHES, **FA.LAUNCHES}
+    out = dict(launches=launches, wall_s=wall, chunks=chunks,
+               host_steps=host_steps, requests=[])
+    for (lane, grammar, body), res in zip(burst, results):
+        if res is None or res[0] != 200:
+            raise AssertionError(f"sampling burst: {body} -> {res}")
+        choice = res[1]["choices"][0]
+        text, finish = choice["message"]["content"], choice["finish_reason"]
+        got = lanes[body["max_tokens"]]
+        verdict = None if grammar is None else grammar_verdict(grammar, text)
+        ok = got == lane and (grammar is None or verdict == "full" or (
+            verdict == "prefix" and finish == "length"))
+        if ok and grammar is not None and "response_format" in body \
+                and verdict == "full":
+            ok = schema_holds(json.loads(text))
+        out["requests"].append(dict(lane=got, want=lane, finish=finish,
+                                    verdict=verdict, text=text,
+                                    tokens=res[1]["usage"]["completion_tokens"]))
+        log(f"sampling burst: max_tokens {body['max_tokens']}: lane {got} "
+            f"(want {lane}), finish {finish}, grammar {verdict}; {text!r}")
+        if not ok:
+            raise AssertionError(f"sampling burst: request {body} on lane "
+                                 f"{got}, text {text!r} ({verdict})")
+    texts = [r[1]["choices"][0]["message"]["content"] for r in seeded]
+    if texts[0] != texts[1]:
+        raise AssertionError(f"sampling: seeded repeats differ: {texts}")
+    out["seeded_repeat_equal"] = True
+    out["logprobs"] = logprobs_check(lm, burst[7][2], results[7][1], lone,
+                                     kept[burst[7][2]["max_tokens"]])
+    if not (chunks and host_steps):
+        raise AssertionError("sampling burst: not both lanes ran")
+    log(f"sampling burst: 8 requests in {wall:.2f}s, {chunks} device decode "
+        f"chunks and {host_steps} host-lane steps; seeded request twice: "
+        f"equal text; launches {launches} [{smi}]")
+    return out
+
+
+def logprobs_check(lm, body: dict, burst: dict, lone: dict,
+                   generated: list) -> dict:
+    """The greedy logprobs request: each served token is its top entry (in
+    the burst and alone), and alone its top logprobs lie within
+    LOGPROB_TOL of a direct InferenceEngine run of the same request (8
+    slots, f16, alone: the same schedule), which takes them from the
+    log-softmax of its logits. Also logged, not gated: the burst's top
+    logprobs against the log-softmax of a one-row teacher-forced run of
+    its tokens (another schedule: the qmm kernels' bf16 roundings carry
+    a changed sum order onwards)."""
+    from tpu_engine_torch.api.openai import ModelPrompts, parse_chat_request
+    from tpu_engine_torch.serve.engine import InferenceEngine
+
+    tok = lm.tokenizer
+    for resp in (burst, lone):
+        for j, e in enumerate(resp["choices"][0]["logprobs"]["content"]):
+            if e["token"] != e["top_logprobs"][0]["token"]:
+                raise AssertionError(f"sampling logprobs: token {j} "
+                                     f"{e['token']!r} is not its top entry")
+    params, _ = parse_chat_request(body, ModelPrompts(), False)
+    eng = InferenceEngine(lm, n_ctx=4096, n_parallel=8, cache_type="f16")
+    try:
+        tid = eng.request_completion(params)
+        while True:
+            r = eng.next_result(tid, timeout=600.0)
+            if r.error:
+                raise AssertionError(f"sampling logprobs: {r.error_message}")
+            if r.stop:
+                break
+    finally:
+        eng.shutdown()
+    served = lone["choices"][0]["logprobs"]["content"]
+    if len(served) != len(r.probs) or not served:
+        raise AssertionError(f"sampling logprobs: {len(served)} served "
+                             f"entries, {len(r.probs)} direct")
+    worst = 0.0
+    for e, d in zip(served, r.probs):
+        if [t["token"] for t in e["top_logprobs"]] != \
+                [t["piece"] for t in d["top"]]:
+            raise AssertionError(f"sampling logprobs: served {e} direct {d}")
+        worst = max(worst, max(abs(a["logprob"] - b["logprob"]) for a, b in
+                               zip(e["top_logprobs"], d["top"])))
+    # the burst's entries against a one-row teacher-forced run (logged)
+    content = burst["choices"][0]["logprobs"]["content"]
+    n = min(len(content), len(generated))
+    logits, _ = tf_logits(LL.forward_step, lm.weights, lm.cfg,
+                          _kv_cache(lm.cfg, 1, 1024, "cuda"),
+                          [_prompt_ids(tok, body)], n - 1,
+                          feed=[[t] for t in generated[:n - 1]])
+    logp = torch.log_softmax(logits[:, 0].double(), dim=-1).cpu().numpy()
+    tf_worst = max(float(np.abs(np.asarray(
+        [t["logprob"] for t in e["top_logprobs"]])
+        - np.sort(logp[j])[::-1][:len(e["top_logprobs"])]).max())
+        for j, e in enumerate(content[:n]))
+    log(f"sampling logprobs: {len(served)} tokens, each its top entry; alone "
+        f"within {worst:.3e} nats of a direct engine run (tol {LOGPROB_TOL}); "
+        f"in the burst {tf_worst:.3e} nats from a one-row teacher-forced run "
+        "(logged)")
+    if worst > LOGPROB_TOL:
+        raise AssertionError("sampling: served logprobs differ from the "
+                             "direct engine run's")
+    return dict(tokens=len(served), max_dlogprob=worst,
+                burst_vs_teacher_forced=tf_worst)
+
+
+class DrawRecorder:
+    """Wraps sample_step (decode_loop's and sample_first's) to keep, for
+    every call, its inputs (logits, per-slot params, penalty ring, grammar
+    rows) and its Gumbel draws (read by also wrapping gumbel_noise), with
+    the rows the engine had active (EngineOps.dloop's mask;
+    sample_first's sampled slots), so that a draw can be replayed on
+    changed logits (replay)."""
+
+    def __init__(self):
+        from tpu_engine_torch.sampling import device as SD
+
+        self.SD, self.calls, self.active = SD, [], None
+        self.real = (SD.sample_step, OPS.sample_step, SD.gumbel_noise,
+                     OPS.EngineOps.dloop, OPS.EngineOps.sample_first)
+
+    def __enter__(self):
+        SD = self.SD
+        step, _, noise_fn, dloop, first = self.real
+        noise = {}
+
+        def gumbel(*a, **kw):
+            noise["last"] = noise_fn(*a, **kw)
+            return noise["last"]
+
+        def sample_step(logits, params, state, gbank=None):
+            toks, st = step(logits, params, state, gbank=gbank)
+            n = noise["last"]  # a draw per (slot, token id)
+            if state.row_span is not None:
+                lo, _ = state.row_span
+                n = n[lo:lo + logits.shape[0]]
+            self.calls.append(dict(
+                tokens=toks.cpu().numpy(), active=self.active,
+                logits=logits.clone(), params=params, ring=state.ring,
+                gstate=state.gstate, gbank=gbank, noise=n))
+            return toks, st
+
+        def dloop_(ops, n_inner, active, reset=None):
+            self.active = np.asarray(active, bool)
+            return dloop(ops, n_inner, active, reset=reset)
+
+        def first_(ops, logits, by_slot, prevs, seed, gstate=None):
+            self.active = np.asarray([p is not None for p in by_slot])
+            return first(ops, logits, by_slot, prevs, seed, gstate=gstate)
+
+        SD.sample_step, OPS.sample_step, SD.gumbel_noise = (
+            sample_step, sample_step, gumbel)
+        OPS.EngineOps.dloop, OPS.EngineOps.sample_first = dloop_, first_
+        return self
+
+    def __exit__(self, *exc):
+        (self.SD.sample_step, OPS.sample_step, self.SD.gumbel_noise,
+         OPS.EngineOps.dloop, OPS.EngineOps.sample_first) = self.real
+
+    def slot_calls(self, slot: int) -> list:
+        """The calls that drew for slot `slot` while it was active, in
+        order: call n drew its n-th generated token."""
+        return [c for c in self.calls
+                if c["active"] is not None and c["active"][slot]]
+
+    def replay(self, call: dict, slot: int, change=None) -> tuple:
+        """Slot `slot`'s draw of `call` again, on its logits plus `change`
+        ([V], or none), with the call's own Gumbel draws: (token, gap of
+        the two best scores, the kept candidates)."""
+        SD = self.SD
+        x = call["logits"][slot:slot + 1]
+        if change is not None:
+            x = x + change[None, :]
+        params = SD.param_rows(call["params"], slot, slot + 1)
+        state = SD.DeviceSamplerState(ring=call["ring"][slot:slot + 1],
+                                      gen=None,
+                                      gstate=call["gstate"][slot:slot + 1])
+        v, idx = SD.candidates(SD.filtered_logits(x, params, state,
+                                                  call["gbank"]), params)
+        score = (v / torch.clamp(params.temp, min=1e-6)[:, None]
+                 + call["noise"][slot:slot + 1].gather(1, idx))[0]
+        top2 = score.topk(2)
+        return (int(idx[0, top2.indices[0]]),
+                float(top2.values[0] - top2.values[1]),
+                set(idx[0][torch.isfinite(v[0])].tolist()))
+
+
+# prompt tokens of the DP=2 cycle: two a prefill bucket (32, 64, 128, 256),
+# so every first token is drawn on the device from the engine's seeded
+# generator (a prompt alone in its bucket takes its first token from the
+# host chain, seeded afresh: serve/engine.py, as in the JAX package)
+SAMP_PROMPTS = [18, 24, 40, 50, 80, 100, 140, 180]
+
+
+def sampled_bodies(tok) -> list:
+    """Chat bodies (_chat_body) of SAMP_PROMPTS tokens at temperature
+    SAMP_TEMP, not streamed."""
+    return [dict(_chat_body(tok, i, n), temperature=SAMP_TEMP, stream=False)
+            for i, n in enumerate(SAMP_PROMPTS)]
+
+
+def engine_run(eng, bodies) -> dict:
+    """The bodies queued on the engine's loop at once (the schedule, and
+    with it the draws, does not follow thread timing); {prompt ids:
+    (slot, generated ids)}."""
+    from tpu_engine_torch.api.openai import ModelPrompts, parse_chat_request
+
+    params = [parse_chat_request(b, ModelPrompts(), True)[0] for b in bodies]
+    tids = eng._call_on_loop(lambda: [eng.request_completion(p)
+                                      for p in params])
+    for tid in tids:
+        while True:
+            r = eng.next_result(tid, timeout=600.0)
+            if r.error:
+                raise AssertionError(r.error_message)
+            if r.stop:
+                break
+    return {tuple(s.prompt_tokens): (s.id, list(s.generated_tokens))
+            for s in eng.slots}
+
+
+def dp_sampled_cycle(path: str, lm, bound: float, smi: str) -> dict:
+    """The chat bodies of SAMP_PROMPTS at temperature SAMP_TEMP through a
+    1x1 engine and a data_parallel 2 grid (start_leader, two ranks on
+    cuda:0 over gloo), the sampler seeded with SAMP_SEED on both: each
+    request's tokens equal, or the first differing one at a near-tie of
+    the 1x1 run's draw (every rank draws every slot's noise and keeps its
+    rows, sampling/device.py; a DP rank's logits round apart from one
+    rank's): replayed with its own Gumbel draws on its logits moved by at
+    most bound * max |logit| each, the 1x1 draw gives the DP run's token.
+    A near-tie of the two best scores (within the bound over the
+    temperature) is one such case; a token at a top_k, top_p or min_p
+    cut within the bound is another. The grid's ranks agree bit for bit
+    (verify_state)."""
+    from tpu_engine_torch.dist.multihost import start_leader, verify_engine
+    from tpu_engine_torch.serve.engine import InferenceEngine
+    from tpu_engine_torch.serve.registry import Grid
+
+    bodies = sampled_bodies(lm.tokenizer)
+    kw = dict(n_ctx=4096, n_parallel=8, cache_type="f16")
+    out = {}
+    with decode_chunk(16):
+        zero_launches()
+        eng = InferenceEngine(lm, **kw)
+        eng._dev_seed = SAMP_SEED
+        t0 = time.time()
+        try:
+            with DrawRecorder() as rec:
+                one = engine_run(eng, bodies)
+        finally:
+            eng.shutdown()
+        out["1x1"] = dict(launches={**DM.LAUNCHES, **FA.LAUNCHES},
+                          wall_s=time.time() - t0)
+        zero_launches()
+        grid = Grid(2, PAR_DEVICES, "gloo")
+        try:
+            eng = start_leader(path, 1, channel=grid.channel, data_parallel=2,
+                               devices=PAR_DEVICES, seed=SAMP_SEED, **kw)
+            t0 = time.time()
+            try:
+                dp = engine_run(eng, bodies)
+                if not verify_engine(eng):
+                    raise AssertionError(f"sampling DP=2: the ranks' state "
+                                         f"diverged: {eng.ops.last_state}")
+            finally:
+                eng.shutdown()
+        finally:
+            grid.close()
+        no_process_left("sampling DP=2")
+        out["dp2"] = dict(launches=grid_launches(), wall_s=time.time() - t0)
+    ties, n_tok = [], 0
+    for ids, (slot, a) in one.items():
+        b = dp[ids][1]
+        n_tok += len(a)
+        calls = rec.slot_calls(slot)
+        drawn = [int(c["tokens"][slot]) for c in calls][:len(a)]
+        if drawn != a:
+            raise AssertionError(f"sampling DP=2: slot {slot}'s tokens were "
+                                 f"not all drawn on the device: {a} vs {drawn}")
+        if a == b:
+            continue
+        j = next((n for n, (x, y) in enumerate(zip(a, b)) if x != y),
+                 min(len(a), len(b)))
+        if j >= min(len(a), len(b)) or j >= len(calls):
+            raise AssertionError(f"sampling DP=2: slot {slot}: one run "
+                                 f"stopped where the other went on ({j})")
+        # the 1x1 draw again, each logit moved by at most the bound
+        # (delta) toward the DP run's pick: that pick up by delta, every
+        # other token down by delta (the change that favours it most, in
+        # the penalties, the top_k / top_p / min_p cuts and the scores)
+        call = calls[j]
+        row = call["logits"][slot]
+        delta = bound * float(row.abs().max())
+        change = torch.full_like(row, -delta)
+        change[b[j]] = delta
+        same, gap, kept = rec.replay(call, slot)
+        moved, _, _ = rec.replay(call, slot, change)
+        log(f"sampling DP=2: slot {slot} first differs at generated token "
+            f"{j}: {a[j]} (1x1, replayed {same}) vs {b[j]} ("
+            f"{'in' if b[j] in kept else 'not in'} the 1x1 draw's kept set "
+            f"of {len(kept)}); the 1x1 draw's two best Gumbel scores "
+            f"{gap:.4e} apart (bound / T {delta / SAMP_TEMP:.4e}); with each "
+            f"logit moved by at most {delta:.4e} toward {b[j]} it draws "
+            f"{moved}")
+        if same != a[j] or moved != b[j]:
+            raise AssertionError(f"sampling DP=2: slot {slot} differs from the "
+                                 "1x1 run beyond a near-tie")
+        ties.append((slot, j, gap, delta))
+    log(f"sampling DP=2 at temperature {SAMP_TEMP}: {n_tok} sampled tokens of "
+        f"{len(one)} requests, {len(ties)} requests parted at a near-tie; "
+        f"1x1 {out['1x1']['wall_s']:.2f}s, DP=2 {out['dp2']['wall_s']:.2f}s "
+        f"[{smi}]")
+    out.update(tokens=n_tok, ties=ties, bound=bound)
+    return out
+
+
+def sampling_phase(path: str, lm, smi: str, par: dict) -> dict:
+    """The device sampler on the card against the host chain (A6), with a
+    torch generator and numpy seeds of its own: the kept candidate sets
+    of eight prefill rows of the smoke model without and with penalties
+    over a filled ring; N_DRAWS draws from one row; a served burst that
+    mixes the lanes (lane_burst_cycle); a DP=2 cycle at temperature
+    SAMP_TEMP against 1x1 (dp_sampled_cycle)."""
+    from tpu_engine_torch.sampling import SamplingParams
+
+    t_phase = time.time()
+    cfg = lm.cfg
+    rng = np.random.default_rng(SAMP_SEED)
+    prompts = rng.integers(300, cfg.n_vocab, (8, 64)).tolist()
+    rows = tf_logits(LL.forward_step, lm.weights, cfg,
+                     _kv_cache(cfg, 8, 128, "cuda"), prompts, 0)[0][0]
+    host = rows.cpu().numpy()
+    plain = SamplingParams(temperature=SAMP_TEMP, top_k=40, top_p=0.9,
+                           min_p=0.05, repeat_penalty=1.0)
+    pen = SamplingParams(temperature=SAMP_TEMP, top_k=40, top_p=0.9,
+                         min_p=0.05, repeat_penalty=1.3,
+                         frequency_penalty=0.4, presence_penalty=0.6)
+    # a filled ring: 64 tokens of each row's 100 best, with repeats
+    rings = [rng.choice(np.argsort(-host[b])[:100], 64).tolist()
+             for b in range(8)]
+    out = {"kept": kept_sets(rows, plain, [[] for _ in range(8)]),
+           "kept penalties": kept_sets(rows, pen, rings)}
+    log(f"sampling: kept sets equal on the card and the host, without "
+        f"penalties {out['kept']} and with them over a filled ring "
+        f"{out['kept penalties']} (tol {KEEP_TOL})")
+    out["draws"] = draws_check(rows[0], plain, host_kept(host[0], plain, []))
+    srv, th, base = start_server()
+    try:
+        out["burst"] = lane_burst_cycle(srv, base, path, lm, smi)
+    finally:
+        stop_server(srv, th)
+    out["dp2"] = dp_sampled_cycle(path, lm, par["served_bounds"]["f16"], smi)
+    out["wall_s"] = time.time() - t_phase
+    log(f"sampling: the phase in {out['wall_s']:.1f}s [{smi}]")
+    return out
+
+
 FA_SRC = "tpu_engine/kernels/flash_attention.py"
 SOURCES = {  # kernel -> (source, the TPU kernel(s) it replaces)
     "qmm_nib4": ("tpu_engine_torch/csrc/qmm.cu",
@@ -2921,7 +3877,8 @@ def _sum_rows(sel: list[tuple[dict, int]]) -> dict:
 
 
 def summarize(rows: list[dict], launches: dict, tp_launches: dict,
-              fam_rows: list[dict], fam_launches: dict) -> list[dict]:
+              fam_rows: list[dict], fam_launches: dict, phi_rows: list[dict],
+              phi_launches: dict) -> list[dict]:
     """One line per kernel: the main-path shape set of a decode step for the
     projections (M=8, summed over the layer's tensors of that kernel); for
     attention the row attn_cases marks (B=8 KH=32 decode at fills 1..511
@@ -2933,7 +3890,10 @@ def summarize(rows: list[dict], launches: dict, tp_launches: dict,
     (PAR_QMM, PAR_ATTN), its launches those of the TP=2 runs (tp_launches:
     rank 0's and its follower's), and a line "<kernel> families" for each
     kernel at the family phase's shapes (fam_rows: FAM_QMM, FAM_ATTN), its
-    launches those of the family models' runs and served cycles."""
+    launches those of the family models' runs and served cycles, and a
+    line "<kernel> phi3 tp2" for qmm_nib4 and qmm_i8 at a TP=2 phi3 rank's
+    shapes (phi_rows: PHI_TP_QMM), its launches those of phi3's TP=2 model
+    check and served cycle (both ranks)."""
     out = []
     for name, (src, repl) in SOURCES.items():
         if name.startswith("qmm"):
@@ -2960,7 +3920,8 @@ def summarize(rows: list[dict], launches: dict, tp_launches: dict,
         out.append(line)
     for sfx, sub, counts in (("tp2", [r for r in rows if r.get("tp")],
                               tp_launches),
-                             ("families", fam_rows, fam_launches)):
+                             ("families", fam_rows, fam_launches),
+                             ("phi3 tp2", phi_rows, phi_launches)):
         for name, (src, repl) in SOURCES.items():
             sel = [r for r in sub if r["kernel"] == name]
             if sel:
@@ -3046,10 +4007,14 @@ def main() -> int:
         detail["perplexity"] = perplexity_phase(lm, smi)
         detail["chat"] = chat_phase(path, lm)
         detail["multimodal"] = multimodal_phase(tmp, path, lm, smi)
-        del lm
         detail["families"], fam_rows, fam_launches = family_phase(
             tmp, smi, Timer(ITERS))
         detail["family_kernel_rows"] = fam_rows
+        detail["grids"], phi_rows, phi_launches = grid_phase(
+            tmp, path, lm, smi, detail["parallel"], Timer(ITERS))
+        detail["grid_kernel_rows"] = phi_rows
+        detail["sampling"] = sampling_phase(path, lm, smi, detail["parallel"])
+        del lm
     # launches of the main path: the five server cycles and the three
     # embedding cycles, each counted from zero at its /loadmodel to its
     # /unloadmodel; the perplexity evaluations and the in-process chat,
@@ -3064,6 +4029,13 @@ def main() -> int:
     par = detail["parallel"]
     tp_cycles = [par["tp_model"], par["tp2 f16"], par["tp2 q8_0"]]
     cycles += tp_cycles + [par["dp_model"], par["dp2 f16"], par["1x1 mesh"]]
+    # the grid phase (phi3 at TP=2, its 1x1 cycle, the image chats and the
+    # embedding loads) and the sampling phase's burst and DP=2 cycle
+    grids, samp = detail["grids"], detail["sampling"]
+    cycles += [grids["phi3"]["1x1 f16"], grids["phi3"]["tp2 f16"],
+               *grids["llava"].values(),
+               *(v for k, v in grids["embeddings"].items()),
+               samp["burst"], samp["dp2"]["1x1"], samp["dp2"]["dp2"]]
     launches = {k: sum(c["launches"][k] for c in cycles) for k in SOURCES}
     tp_launches = {k: sum(c["launches"][k] for c in tp_cycles) for k in SOURCES}
     detail["launches"] = launches
@@ -3074,7 +4046,8 @@ def main() -> int:
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:
         json.dump(detail, fh, indent=1)
     print(json.dumps({"kernels": summarize(rows, launches, tp_launches,
-                                           fam_rows, fam_launches)}),
+                                           fam_rows, fam_launches, phi_rows,
+                                           phi_launches)}),
           flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

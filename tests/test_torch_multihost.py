@@ -15,7 +15,9 @@ on the CPU, and the registry serving a grid over HTTP:
     {"data_parallel": 2}: the chats give the 1x1 load's text, and no
     follower process is left after each /unloadmodel;
   - a backend the devices cannot run (nccl on the CPU) is refused at
-    /loadmodel before any process starts.
+    /loadmodel before any process starts; an mmproj is served on a TP=2
+    and a DP=2 grid with the 1x1 load's and the JAX registry's image-chat
+    tokens.
 """
 
 import json
@@ -181,7 +183,34 @@ def test_grid_load_applies_grammar_file(path, tmp_path, monkeypatch):
         th.join(timeout=30)
 
 
-def test_grid_backend_refused_before_any_process(path):
+def _image_chat_served(base, body, load):
+    """/loadmodel, the chat, /unloadmodel on a server: (text, completion
+    tokens, prompt tokens)."""
+    status, resp = _post(base, "/loadmodel", load)
+    assert status == 200, resp
+    status, resp = _post(base, "/v1/chat/completions", body)
+    assert status == 200, resp
+    status, _ = _post(base, "/unloadmodel", {"model": load["model"]})
+    assert status == 200
+    usage = resp["usage"]
+    return (resp["choices"][0]["message"]["content"],
+            usage["completion_tokens"], usage["prompt_tokens"])
+
+
+def test_grid_backend_refused_before_any_process(path, tmp_path,
+                                                 monkeypatch):
+    """A backend the devices cannot run is refused before any process
+    starts. An mmproj, refused on a grid before, is served: a tiny
+    LLaVA-1.5 image chat (its 16 image rows one unbucketed chunk on every
+    rank) at tensor_parallel 2 and data_parallel 2 gives the port's 1x1
+    load's text and usage, and the JAX registry's at the same grid (its
+    warm-up compile skipped), with no process left after /unloadmodel."""
+    import base64
+
+    from tests.test_clip import _png_bytes, tiny_hf_clip, write_mmproj
+    from tpu_engine.api.server import make_server as jax_make_server
+    from tpu_engine.serve.engine import InferenceEngine as JEngine
+    from tpu_engine_torch.api.server import make_server
     from tpu_engine_torch.serve.registry import EngineRegistry
 
     reg = EngineRegistry(device="cpu", devices=["cpu"] * 2, backend="nccl")
@@ -189,7 +218,44 @@ def test_grid_backend_refused_before_any_process(path):
                               "tensor_parallel": 2})
     assert not ok and "nccl needs a CUDA device per rank" in msg
     assert multiprocessing.active_children() == []
-    reg = EngineRegistry(device="cpu", devices=["cpu"] * 2)
-    ok, msg = reg.load_model({"llama_model_path": path, "model": "m",
-                              "tensor_parallel": 2, "mmproj": path})
-    assert not ok and "text generation only" in msg
+
+    monkeypatch.setenv("TPU_ENGINE_DECODE_CHUNK", "8")
+    monkeypatch.setenv("TPU_ENGINE_BF16_SCALES", "0")
+    monkeypatch.setattr(JEngine, "warm_up", lambda self, *a, **kw: None)
+    mm = write_mmproj(str(tmp_path / "m15.gguf"), tiny_hf_clip(),
+                      e_llm=load_model(path, device="cpu").cfg.n_embd)[0]
+    png = _png_bytes(seed=5, size=(48, 40))
+    body = {"model": "mm", "max_tokens": 8, "temperature": 0,
+            "messages": [{"role": "user", "content": [
+                {"type": "text", "text": "what is this?"},
+                {"type": "image_url", "image_url": {
+                    "url": "data:image/png;base64,"
+                           + base64.b64encode(png).decode()}}]}]}
+    load = {"llama_model_path": path, "model": "mm", "mmproj": mm,
+            "n_parallel": 2, "n_batch": 16}
+    grids = ({"tensor_parallel": 2}, {"data_parallel": 2})
+    got, want = {}, {}
+    for make, out, runs in (
+            (lambda port: make_server("127.0.0.1", port, device="cpu",
+                                      devices=["cpu"] * 2), got,
+             ({},) + grids),
+            (lambda port: jax_make_server("127.0.0.1", port), want, grids)):
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        srv = make(port)
+        th = threading.Thread(target=srv.serve_forever, daemon=True)
+        th.start()
+        try:
+            for grid in runs:
+                out[json.dumps(grid)] = _image_chat_served(
+                    f"http://127.0.0.1:{port}", body, {**load, **grid})
+                assert multiprocessing.active_children() == []
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            srv.registry.unload_all()
+            th.join(timeout=30)
+    one = got.pop("{}")
+    assert one[1] > 0 and one[2] > 16  # 16 image tokens in the prompt
+    assert got == want and set(got.values()) == {one}, (got, want, one)

@@ -6,7 +6,10 @@ so the parity is held on what does not depend on them:
   - the filtered, penalized, temperature-scaled candidate distribution the
     draw reads (captured from both with the Gumbel noise set to zero) is
     equal to 1e-6 (f32 softmax of the same f32 values);
-  - with the same Gumbel noise fed to both, the sampled tokens are equal;
+  - with the same Gumbel noise fed to both (the port draws per token id:
+    each JAX candidate's draw on its token), the sampled tokens are equal;
+  - a change of the logits far below the draws' spread that reorders
+    candidates leaves the port's draws as they were;
   - grammar-bank state advance and the expanded token tables are equal;
   - seeded draws are deterministic within the port.
 """
@@ -131,10 +134,14 @@ def test_same_noise_same_tokens(monkeypatch, draw):
     x = logits_for(50 + draw)
     noise = np.random.default_rng(draw).gumbel(
         size=(1, T.DEVICE_TOP_K)).astype(np.float32)
-    _, _, jt = _jax_scores(monkeypatch, x, jp, js, noise)
+    _, jidx, jt = _jax_scores(monkeypatch, x, jp, js, noise)
+    # the port draws per token id: each JAX candidate's draw on its token
+    by_token = np.zeros((S, V), np.float32)
+    for s in range(S):
+        by_token[s, jidx[s]] = noise[0]
     monkeypatch.setattr(T, "gumbel_noise",
                         lambda shape, gen, device: torch.from_numpy(
-                            np.broadcast_to(noise, shape).copy()))
+                            by_token.copy()))
     tt, _ = T.sample_step(torch.from_numpy(x), tp, ts)
     np.testing.assert_array_equal(tt.numpy(), jt)
 
@@ -204,3 +211,33 @@ def test_seeded_draws_deterministic_within_port():
 
     np.testing.assert_array_equal(run(7), run(7))
     assert not np.array_equal(run(7), run(8))
+
+
+def test_draws_follow_tokens_not_sort_order():
+    """Logits in close pairs (1e-4 apart), and the same logits with every
+    pair's order swapped: with one generator seed the port draws the same
+    tokens from both, on every row and seed, since each token keeps its
+    own Gumbel draw and its score moves by 1e-4 / T. A draw per sorted
+    position (the JAX package's, and the port's before) hands each of a
+    swapped pair the other's draw, and the picks part: this test fails
+    there. It is what held a data-parallel rank's draws to one rank's on
+    the card, where the rank's logits round apart by about 1e-2."""
+    rng = np.random.default_rng(4)
+    x = np.full((S, V), -30.0, np.float32)
+    y = x.copy()
+    for s in range(S):
+        toks = rng.permutation(V)[:64]
+        base = np.sort(rng.standard_normal(32)).astype(np.float32)[::-1]
+        for k, c in enumerate(base):
+            a, b = toks[2 * k], toks[2 * k + 1]
+            x[s, a], x[s, b] = c, c - 1e-4
+            y[s, a], y[s, b] = c - 1e-4, c
+    _, tp = both_params([dict(temperature=1.0, top_k=64, top_p=1.0,
+                              min_p=0.0, repeat_penalty=1.0)] * S)
+    differ = 0
+    for seed in range(40):
+        got = [T.sample_step(torch.from_numpy(z), tp,
+                             T.new_state(S, seed=seed, device="cpu"))[0]
+               for z in (x, y)]
+        differ += int((got[0] != got[1]).sum())
+    assert differ == 0

@@ -17,8 +17,10 @@ atol 2e-3):
     unsharded engine's texts;
   - the DP decode_loop: each rank's cache holds S/dp slots, the tokens
     (greedy and at temperature 0.8) are the one-rank loop's;
-  - validate_tp and the registry's refusals in the JAX package's words,
-    a phi3 GGUF (q|k|v and gate|up stored fused) among them;
+  - validate_tp and the registry's refusals in the JAX package's words;
+  - a phi3 GGUF (q|k|v and gate|up stored fused) at TP=2: each rank's
+    parts are the JAX sharder's bytes, its logits and greedy text the JAX
+    TP=2 load's;
   - a fused q|k|v of a rank's slice splits by the rank's heads;
   - a 1x1 mesh through make_tp_functions gives the plain path's bits.
 """
@@ -314,27 +316,118 @@ def test_nccl_on_a_repeated_device_is_refused():
                 group=0, shape=(4, 8)), "wq", 2, 1), QTensor)
 
 
-def test_stored_fused_projections_refused_under_tp(tmp_path):
-    """phi3 stores q|k|v and gate|up fused: under TP the port keeps them
-    whole and refuses, with the JAX package's validate_tp message, at the
-    registry (before any process starts) and at validate_tp."""
-    from tests.test_archs import VOCAB, tiny_phi3
+def _jax_rank_rows(qt, spec, li: int, mesh, r: int):
+    """Layer li of a stacked JAX QTensor, cut as the JAX TP forward's
+    shard_map hands it to rank r (its weight spec, dist/tp._weight_specs),
+    as a plain mapping for the port's _qt_from_mapping."""
+    from jax.sharding import NamedSharding
+
+    dev = np.asarray(mesh.devices).reshape(-1)[r]
+    out = {}
+    for key in ("qs", "scale", "bias"):
+        a = getattr(qt, key)
+        if a is None:
+            out[key] = None
+            continue
+        idx = NamedSharding(mesh, spec).devices_indices_map(a.shape)[dev]
+        out[key] = np.asarray(a)[idx][li]
+    n = out["qs"].shape[0]
+    return dict(out, kind=qt.kind, group=qt.group, shape=(n, qt.shape[1]),
+                perm=qt.perm, perm_shards=qt.perm_shards, packed=qt.packed,
+                k_pad=qt.k_pad)
+
+
+def test_stored_fused_projections_refused_under_tp(tmp_path, monkeypatch):
+    """phi3 stores q|k|v and gate|up fused. Under TP the port's loader now
+    cuts them back into their parts by rows and shards each part, as the
+    JAX loader does (before, it kept them whole and the registry and
+    validate_tp refused them; this test failed there). At f32 and q8_0:
+    each TP=2 rank's wq, wk, wv, w_gate and w_up (sliced out of the
+    rank's fused q|k|v and gate|up) hold the bytes of the rank's shard in
+    the JAX TP forward (its weight specs), and validate_tp passes; the port's TP=2 ranks'
+    prefill and step logits are the JAX TP=2 forward's and the port's
+    one-rank forward's within TOL; the port's registry serves the file at
+    tensor_parallel 2 with the JAX registry's greedy text (its warm-up
+    compile skipped) and the 1x1 load's."""
     from tests.models import tokenizer_metadata
+    from tests.test_archs import VOCAB, tiny_phi3
+    from tpu_engine.serve.engine import InferenceEngine as JEngine
+    from tpu_engine.serve.registry import EngineRegistry as JReg
+    from tpu_engine.serve.types import CompletionParams as JCP
     from tpu_engine.tools.convert import hf_llama_to_gguf
+    from tpu_engine_torch.model.weights import _qt_from_mapping
+    from tpu_engine_torch.serve import CompletionParams
     from tpu_engine_torch.serve.registry import EngineRegistry
 
-    path = str(tmp_path / "phi3.gguf")
-    hf_llama_to_gguf(tiny_phi3(), path, "f32", tokenizer_metadata(VOCAB),
-                     name="phi3")
-    jm = j_load(path)
-    with pytest.raises(ValueError) as je:
-        JT.validate_tp(jm.cfg, jm.weights, 2)
-    ok, msg = EngineRegistry(device="cpu", devices=["cpu"] * 2).load_model(
-        {"llama_model_path": path, "model": "p", "tensor_parallel": 2})
-    assert not ok and msg == str(je.value)
-    lm = t_load(path, device="cpu", sharder=TS.make_sharder(2, 0))
-    assert lm.weights["layers"][0]["wqkv"].shape[0] == (
-        (lm.cfg.n_head + 2 * lm.cfg.n_kv_head) * lm.cfg.head_dim)
-    with pytest.raises(ValueError) as te:
-        TT.validate_tp(lm.cfg, lm.weights, 2)
-    assert str(te.value) == str(je.value)
+    monkeypatch.setenv("TPU_ENGINE_BF16_SCALES", "0")
+    monkeypatch.setenv("TPU_ENGINE_DECODE_CHUNK", "8")
+    monkeypatch.setattr(JEngine, "warm_up", lambda self, *a, **kw: None)
+    paths = {}
+    for quant in ("f32", "q8_0"):
+        paths[quant] = str(tmp_path / f"phi3-{quant}.gguf")
+        hf_llama_to_gguf(tiny_phi3(), paths[quant], quant,
+                         tokenizer_metadata(VOCAB), name="phi3")
+    logits = run_group(tp_forward, 2, str(tmp_path / "tp2"),
+                       list(paths.values()))[0]
+    for quant, path in paths.items():
+        jmesh = JT.tp_mesh(2)
+        jm = j_load(path, sharder=JT.TPSharder(jmesh))
+        specs = JT._weight_specs(jm.weights, 2)["layers"]
+        H, KH, D = jm.cfg.n_head, jm.cfg.n_kv_head, jm.cfg.head_dim
+        for r in range(2):
+            lm = t_load(path, device="cpu", sharder=TS.make_sharder(2, r))
+            TT.validate_tp(lm.cfg, lm.weights, 2)
+            for li, lw in enumerate(lm.weights["layers"]):
+                qkv, gu = lw["wqkv"], lw["w_gateup"]
+                nq, nkv = H * D // 2, KH * D // 2
+                parts = {"wq": TS.slice_rows(qkv, 0, nq),
+                         "wk": TS.slice_rows(qkv, nq, nq + nkv),
+                         "wv": TS.slice_rows(qkv, nq + nkv, nq + 2 * nkv),
+                         "w_gate": TS.slice_rows(gu, 0, gu.shape[0] // 2),
+                         "w_up": TS.slice_rows(gu, gu.shape[0] // 2,
+                                               gu.shape[0])}
+                assert qkv.shape[0] == nq + 2 * nkv
+                assert gu.shape[0] == lm.cfg.n_ff
+                for key, got in parts.items():
+                    want = _qt_from_mapping(_jax_rank_rows(
+                        jm.weights["layers"][key], specs[key], li, jmesh,
+                        r), "cpu")
+                    assert want.shape == got.shape, (quant, key)
+                    for a, b in ((got.qs, want.qs), (got.scale, want.scale),
+                                 (got.bias, want.bias)):
+                        assert (a is None) == (b is None)
+                        if a is not None:
+                            assert torch.equal(a, b), (quant, r, li, key)
+        pre, step = logits[path]
+        _, ref_pre, ref_step = _port_ref(path)
+        j_pre, j_step = _jax_tp(path, 2)
+        for got, want in ((pre, j_pre), (step, j_step), (pre, ref_pre.numpy()),
+                          (step, ref_step.numpy())):
+            np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+    def text(reg, params, grid):
+        ok, msg = reg.load_model({"llama_model_path": paths["q8_0"],
+                                  "model": "p", "ctx_len": 128,
+                                  "n_parallel": 2, **grid})
+        assert ok, msg
+        try:
+            eng = reg.get("p").engine
+            tid = eng.request_completion(params)
+            while True:
+                res = eng.next_result(tid, timeout=300.0)
+                assert not res.error, res.error_message
+                if res.stop:
+                    return res.text
+        finally:
+            reg.unload_all()
+
+    texts = []
+    for grid in ({}, {"tensor_parallel": 2}):
+        texts.append(text(EngineRegistry(device="cpu", devices=["cpu"] * 2),
+                          CompletionParams(prompt=PROMPT, n_predict=12,
+                                           sampling=SamplingParams(
+                                               temperature=0.0)), grid))
+    texts.append(text(JReg(), JCP(prompt=PROMPT, n_predict=12,
+                                  sampling=JSP(temperature=0.0)),
+                      {"tensor_parallel": 2}))
+    assert texts[0] == texts[1] == texts[2] and texts[0]

@@ -162,7 +162,9 @@ def validate_heads(cfg, p: int) -> None:
 def validate_tp(cfg, weights: dict, p: int) -> None:
     """Fail fast when the model cannot run this TP degree (the JAX
     package's checks, on a rank's slices: a whole q|k|v, gate|up, wo or
-    w_down under p > 1 means the model was loaded without TPSharder)."""
+    w_down under p > 1 means the model was loaded without TPSharder; a
+    rank's q|k|v or gate|up fused again from its slices, stored fused or
+    not, has 1/p of the rows and passes)."""
     if p <= 1:
         return  # dp-only serving: weights whole, nothing to split
     validate_heads(cfg, p)

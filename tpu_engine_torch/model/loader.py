@@ -12,8 +12,11 @@ The layers stay a per-layer list: the port runs them in a Python loop.
 
 sharder(name, tensor) -> tensor (dist/tp.TPSharder) cuts each weight and
 q/k/v bias to one tensor-parallel rank's slice on the host, before it is
-uploaded, so a rank never holds the whole model on its device; q|k|v and
-gate|up are then fused from the rank's own slices.
+uploaded, so a rank never holds the whole model on its device. A stored
+fused attn_qkv or gate|up (phi3) is first cut back into its q, k, v or
+gate, up rows, as the JAX loader does, and each part sliced like an
+unfused tensor; q|k|v and gate|up are then fused from the rank's own
+slices.
 """
 
 from __future__ import annotations
@@ -122,9 +125,8 @@ def load_model(path: str, device=None, compute_dtype=torch.float32,
     """Load a GGUF model onto `device` (default "cuda"; raises when CUDA is
     missing and the CPU was not asked for). A causal model gets the
     llama-family layout, a non-causal one the encoder layout. sharder: a
-    tensor-parallel rank's loader hook (dist/tp.TPSharder); a stored fused
-    attn_qkv or gate|up stays whole, which dist/tp.validate_tp refuses
-    under TP."""
+    tensor-parallel rank's loader hook (dist/tp.TPSharder); an encoder
+    ignores it (served whole, as the JAX package's encoder path does)."""
     dev = resolve_device(device)
     t0 = time.time()
     g = read_gguf(path)
@@ -137,9 +139,6 @@ def load_model(path: str, device=None, compute_dtype=torch.float32,
         tok = Tokenizer.from_gguf_metadata(g.metadata)
         size = sum(t.n_bytes for t in g.tensors.values())
         if not cfg.causal:
-            if sharder is not None:
-                raise ValueError("tensor parallelism serves causal models "
-                                 "only; this GGUF is an encoder")
             weights = _load_encoder(g, cfg, dev, compute_dtype)
             log.info("loaded encoder %s onto %s in %.1fs", path, dev,
                      time.time() - t0)
@@ -159,14 +158,34 @@ def load_model(path: str, device=None, compute_dtype=torch.float32,
         # a sharded load converts on the host and uploads the rank's slice
         conv_dev = "cpu" if sharder is not None else dev
 
-        def qt(name: str, shard: bool = True) -> QTensor:
+        def qt(name: str) -> QTensor:
             t = qtensor_from_gguf(g, name, conv_dev, compute_dtype)
             if qk_perm is not None and name.endswith((".attn_q.weight",
                                                       ".attn_k.weight")):
                 t = permute_rows(t, qk_perm["q" if "attn_q" in name else "k"])
             if sharder is None:
                 return t
-            return qtensor_to(sharder(name, t) if shard else t, dev)
+            return qtensor_to(sharder(name, t), dev)
+
+        def split(name: str, parts: list) -> list:
+            """A stored fused weight cut by rows into parts [(GGUF name of
+            the part, rows)], each then sharded as that unfused tensor
+            (under a sharder only: the rank's heads of q, k and v, or its
+            rows of gate and up, are not one contiguous slice)."""
+            from ..dist.sharding import slice_rows
+
+            t = qtensor_from_gguf(g, name, conv_dev, compute_dtype)
+            if sum(n for _, n in parts) != t.shape[0]:
+                raise ValueError(f"{name}: {t.shape[0]} rows, not the parts "
+                                 f"{parts}")
+            out, n0 = [], 0
+            for part, n in parts:
+                t_part = slice_rows(t, n0, n0 + n)
+                out.append(qtensor_to(sharder(part, t_part), dev))
+                n0 += n
+            return out
+
+        H, KH, D = cfg.n_head, cfg.n_kv_head, cfg.head_dim
 
         def vec(name: str, perm=None):
             return _vec(g, name, dev, compute_dtype, perm, sharder)
@@ -180,7 +199,13 @@ def load_model(path: str, device=None, compute_dtype=torch.float32,
                 "w_down": qt(p + "ffn_down.weight"),
             }
             if p + "attn_qkv.weight" in g.tensors:  # phi3-style fused qkv
-                lw["wqkv"] = qt(p + "attn_qkv.weight", shard=False)
+                if sharder is None:
+                    lw["wqkv"] = qt(p + "attn_qkv.weight")
+                else:
+                    lw["wq"], lw["wk"], lw["wv"] = split(
+                        p + "attn_qkv.weight", [(p + "attn_q.weight", H * D),
+                                                (p + "attn_k.weight", KH * D),
+                                                (p + "attn_v.weight", KH * D)])
             else:
                 lw["wq"] = qt(p + "attn_q.weight")
                 lw["wk"] = qt(p + "attn_k.weight")
@@ -188,8 +213,12 @@ def load_model(path: str, device=None, compute_dtype=torch.float32,
             if p + "ffn_gate.weight" in g.tensors:
                 lw["w_gate"] = qt(p + "ffn_gate.weight")
                 lw["w_up"] = qt(p + "ffn_up.weight")
-            else:  # phi3-style fused gate|up stored as ffn_up
-                lw["w_gateup"] = qt(p + "ffn_up.weight", shard=False)
+            elif sharder is None:  # phi3-style fused gate|up stored as ffn_up
+                lw["w_gateup"] = qt(p + "ffn_up.weight")
+            else:
+                lw["w_gate"], lw["w_up"] = split(
+                    p + "ffn_up.weight", [(p + "ffn_gate.weight", cfg.n_ff),
+                                          (p + "ffn_up.weight", cfg.n_ff)])
             if p + "attn_q.bias" in g.tensors:
                 lw["bq"] = vec(p + "attn_q.bias",
                                None if qk_perm is None else qk_perm["q"])

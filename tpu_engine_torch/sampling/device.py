@@ -11,10 +11,16 @@ Same semantics as the JAX package's sampling/device.py. Randomness comes
 from one torch.Generator on the sampling device, seeded per engine; JAX's
 PRNG keys and torch's generator give different numbers, so draws match
 the JAX package in distribution only (greedy tokens match exactly).
-Under data parallelism (dist/tp.py) a rank samples only its own slots,
-but draws the noise of every slot from the same seeded generator and
-keeps its rows (row_span), as the JAX package keeps one key per slot: a
-DP run samples what the one-rank run samples.
+The Gumbel draw is one per (slot, token id), where the JAX package draws
+one per sorted candidate position: the law is the same, but a small
+change of the logits that reorders two candidates then moves each
+token's score by that change alone, instead of handing it another
+candidate's noise. Under data parallelism (dist/tp.py) a rank samples
+only its own slots, but draws the noise of every slot from the same
+seeded generator and keeps its rows (row_span), as the JAX package keeps
+one key per slot: a DP run samples what the one-rank run samples, and
+where a rank's kernels round its logits apart from one rank's (a
+product over S/dp rows), the two part only at a near-tie of scores.
 Requests needing mirostat, typical_p, dynatemp, logit_bias, n_probs or a
 fixed seed stay on the host chain.
 """
@@ -293,13 +299,14 @@ def sample_step(logits: torch.Tensor, params: DeviceSamplerParams,
     v, idx = candidates(logits, params)
     greedy = params.temp <= 0.0
     scaled = v / torch.clamp(params.temp, min=1e-6)[:, None]
-    if state.row_span is None:
-        noise = gumbel_noise(v.shape, state.gen, v.device)
+    S, V = logits.shape
+    if state.row_span is None:  # a draw per token id
+        noise = gumbel_noise((S, V), state.gen, v.device)
     else:  # every slot's draws, this rank's rows kept
         lo, n_all = state.row_span
-        noise = gumbel_noise((n_all, v.shape[1]), state.gen,
-                             v.device)[lo:lo + v.shape[0]]
-    score = torch.where(greedy[:, None], v, scaled + noise)
+        noise = gumbel_noise((n_all, V), state.gen, v.device)[lo:lo + S]
+    score = torch.where(greedy[:, None], v,
+                        scaled + torch.gather(noise, 1, idx))
     choice = torch.argmax(score, dim=-1)
     tokens = torch.gather(idx, 1, choice[:, None])[:, 0].to(torch.int32)
     return tokens, advance(tokens)

@@ -11,12 +11,17 @@ card); the backend is nccl on distinct cards, gloo on the CPU, or named
 (`backend`): gloo lets ranks share one card. Refusals keep the JAX
 package's words. tensor_parallel "auto" resolves to the devices over
 data_parallel, as in the JAX package: on one card (or the CPU) that is 1,
-served unsharded. An `mmproj` (LLaVA's CLIP vision tower and projector)
-loads onto the registry's device beside the LLM, raises the context to
-2048 cells (4096 for llava-1.6 anyres), and the engine serves images in
-chat prompts. A non-causal GGUF (bert, nomic-bert) is served by
-serve/encoder.EncoderEngine; a causal one loaded with `model_type:
-"embedding"` by InferenceEngine's embedding path, without warm-up.
+served unsharded. One grid serves at a time (its ranks are processes
+holding the devices). An `mmproj` (LLaVA's CLIP vision tower and
+projector) loads onto the registry's device (a grid's rank 0 device)
+beside the LLM, raises the context to 2048 cells (4096 for llava-1.6
+anyres), and the engine serves images in chat prompts; on a grid the
+image rows travel to the other ranks with the step that consumes them. A
+non-causal GGUF (bert, nomic-bert) is served by serve/encoder.
+EncoderEngine, whole on the first device even when a grid is asked for,
+as the JAX registry serves it; a causal one loaded with `model_type:
+"embedding"` by InferenceEngine's embedding path (a grid's leader
+engine too), without warm-up.
 cache_type f16, q8_0 and q4_0 are served; an unknown type warns and falls
 back to f16, as the reference does. grp_attn_n > 1 (self-extend) is
 served: K is then stored unrotated and the attention kernels rotate it by
@@ -135,9 +140,11 @@ class Grid:
         shutil.rmtree(self.store, ignore_errors=True)
 
 
-def _precheck_tp(path: str, p: int) -> None:
-    """validate_tp's refusals that the GGUF header decides, before any
-    process is spawned: head counts, and a stored fused q|k|v."""
+def _precheck_tp(path: str, p: int):
+    """validate_tp's refusal that the GGUF header decides, before any
+    process is spawned: the head counts (an encoder's too, as in the JAX
+    registry). Returns the model's config. A stored fused q|k|v or
+    gate|up (phi3) is split by the loader under TP."""
     from ..dist.tp import validate_heads
     from ..gguf.reader import read_gguf
     from ..model.config import ModelConfig
@@ -145,19 +152,10 @@ def _precheck_tp(path: str, p: int) -> None:
     g = read_gguf(path)
     try:
         cfg = ModelConfig.from_gguf_metadata(g.metadata)
-        # a stored fused q|k|v or gate|up (phi3) stays whole under TP
-        fused = any(n.endswith(".attn_qkv.weight") for n in g.tensors) or (
-            "blk.0.ffn_up.weight" in g.tensors
-            and "blk.0.ffn_gate.weight" not in g.tensors)
     finally:
         g.close()
-    if not cfg.causal:
-        raise ValueError("tensor parallelism serves causal models only; "
-                         "this GGUF is an encoder")
     validate_heads(cfg, p)
-    if fused and p > 1:
-        raise ValueError("TP expects unfused projections; load the model "
-                         "with sharder=TPSharder(mesh)")
+    return cfg
 
 
 class EngineRegistry:
@@ -236,6 +234,8 @@ class EngineRegistry:
         is_embedding = bool(body.get("embedding", model_type == "embedding"))
 
         grid_devices = None  # the ranks' devices when a grid is served
+        device = self.device  # where this process loads the model (rank 0)
+        cfg = None  # the grid model's config, read from the GGUF header
         if tp_size > 1 or dp_size > 1:
             if tp_size * dp_size > n_dev:
                 return False, (f"tensor_parallel={tp_size} x data_parallel="
@@ -243,17 +243,21 @@ class EngineRegistry:
             if dp_size > 1 and n_parallel % dp_size:
                 return False, (f"data_parallel={dp_size} requires n_parallel "
                                f"({n_parallel}) divisible by it")
-            if body.get("mmproj") or model_type == "embedding":
-                return False, ("a tensor_parallel x data_parallel grid "
-                               "serves text generation only (no mmproj, no "
-                               "embedding model)")
+            try:
+                cfg = _precheck_tp(str(path), tp_size)
+            except ValueError as e:
+                return False, str(e)
+            # an encoder (bert, nomic-bert) is served whole on the grid's
+            # first device, with no process spawned: the JAX registry's
+            # encoder path returns before its mesh is used
+            device = devices[0]
+        if cfg is not None and cfg.causal:
             with self._lock:
                 busy = [e.model_id for e in self._models.values() if e.grid]
             if busy:
                 return False, (f"a device grid is already serving {busy[0]}; "
                                "unload it first")
             try:
-                _precheck_tp(str(path), tp_size)
                 grid_devices = devices[:tp_size * dp_size]
                 from ..dist.tp import check_backend, default_backend
 
@@ -265,12 +269,12 @@ class EngineRegistry:
         lm = None  # a grid's rank 0 loads its slice in start_leader
         if grid_devices is None:
             try:
-                lm = load_model(str(path), device=self.device)
+                lm = load_model(str(path), device=device)
             except NotImplementedError as e:
                 return False, str(e)
 
         # multimodal: mmproj clip model (reference LoadModel,
-        # llama_server_context.cc:182-242); a grid refused it above
+        # llama_server_context.cc:182-242), on rank 0's device under a grid
         clip = None
         mmproj = body.get("mmproj")
         if mmproj:
@@ -279,14 +283,15 @@ class EngineRegistry:
             from ..clipvit.model import load_clip
 
             try:
-                clip = load_clip(str(mmproj), device=self.device)
+                clip = load_clip(str(mmproj), device=device)
             except Exception as e:
                 return False, f"unable to load clip model: {e}"
-            if clip.n_embd_out != lm.cfg.n_embd:
+            n_embd = (lm.cfg if lm is not None else cfg).n_embd
+            if clip.n_embd_out != n_embd:
                 return False, (
                     f"embedding dim of the multimodal projector "
                     f"({clip.n_embd_out}) is not equal to that of the LLM "
-                    f"({lm.cfg.n_embd}); use the matching mmproj file")
+                    f"({n_embd}); use the matching mmproj file")
             # images need room (reference :195-205: >=2048; llava-1.6 4096)
             min_ctx = 4096 if clip.cfg.is_anyres else 2048
             if n_ctx < min_ctx:
@@ -365,7 +370,8 @@ class EngineRegistry:
             try:
                 engine = start_leader(
                     str(path), tp_size, channel=grid.channel,
-                    data_parallel=dp_size, devices=grid_devices, **engine_kw)
+                    data_parallel=dp_size, devices=grid_devices, clip=clip,
+                    **engine_kw)
             except Exception as e:
                 grid.close()
                 log.error("grid load of %s failed: %s", model_id, e)
