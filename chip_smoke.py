@@ -12,6 +12,12 @@ head_dim 64-256 and query groups of 1-72, and
 the decode kernels at the edges of their cell splits (also against
 decode_split_plain) and twice on the same inputs (equal bits), and the
 prefill kernels at the edges of their cell tiles (equal bits too). Then
+the load phase: the extract kernel (GGUF blocks to the natural layout,
+csrc/extract.cu) against extract_plain for the ten quantized formats at
+4096x4096 and at 333 rows, bit for bit, timed; the smoke model loaded on
+the card by load_model, its quantized tensors against a CPU load's bit
+for bit (as each family file's are, right after its load in the family
+phase). Then
 runs a Llama-2-7B-width Q4_K_M model (depth cut to 4 layers, random
 weights from a seed) once through every kernel against each kernel's
 twin, and at f16, q8_0 and q4_0 KV and with self-extend at f16 and q4_0
@@ -102,6 +108,7 @@ import torch
 
 from tpu_engine_torch.kernels import _build
 from tpu_engine_torch.kernels import dequant_matmul as DM
+from tpu_engine_torch.kernels import extract as EX
 from tpu_engine_torch.kernels import flash_attention as FA
 from tpu_engine_torch.kvcache.cache import (QUANT_KINDS, KVCache, default_layout,
                                             dequant_kv, quantize_kv_rows)
@@ -787,7 +794,7 @@ def shadowed_qmatmul(shadow: dict):
 def zero_launches() -> None:
     from tpu_engine_torch.dist import multihost
 
-    for counts in (DM.LAUNCHES, FA.LAUNCHES):
+    for counts in (DM.LAUNCHES, FA.LAUNCHES, EX.LAUNCHES):
         for k in counts:
             counts[k] = 0
     multihost.FOLLOWER_LAUNCHES.clear()
@@ -795,11 +802,12 @@ def zero_launches() -> None:
 
 def grid_launches() -> dict:
     """This process's kernel launches plus those its grids' followers
-    reported at /unloadmodel."""
+    reported at /unloadmodel (the load's extract among them)."""
     from tpu_engine_torch.dist import multihost
 
     return {k: n + multihost.FOLLOWER_LAUNCHES.get(k, 0)
-            for k, n in {**DM.LAUNCHES, **FA.LAUNCHES}.items()}
+            for k, n in {**DM.LAUNCHES, **FA.LAUNCHES,
+                         **EX.LAUNCHES}.items()}
 
 
 def start_server(devices=None, backend=None):
@@ -1155,6 +1163,9 @@ def server_cycle(srv, base, path, tok, label, smi, grid=None,
     if status != 200:
         raise AssertionError(f"/loadmodel {label}: {status} {resp}")
     t_load = time.time() - t0
+    if not EX.LAUNCHES["extract"]:
+        raise AssertionError(f"/loadmodel {label}: no tensor was extracted "
+                             "on the card")
     # the engine's cache follows default_layout: at head_dim 128, "td" for
     # f16 (attn_decode/attn_prefill) and "dt" for q8_0/q4_0
     # (attn_decode_dt/attn_prefill_dt); self-extend stores K unrotated
@@ -1269,7 +1280,7 @@ def server_cycle(srv, base, path, tok, label, smi, grid=None,
     if any(p.is_alive() for p in procs) or multiprocessing.active_children():
         raise AssertionError(f"{label}: a process outlived /unloadmodel")
     launches = grid_launches()
-    chat = {k: after_chat[k] - after_load[k] for k in launches}
+    chat = {k: after_chat[k] - after_load[k] for k in after_chat}
     log(f"server {label}: launches over the cycle {launches}; during the "
         f"chat burst {chat}")
     sfx = ("_dt" if layout == "dt" else "") + ("_rope" if se else "")
@@ -2870,12 +2881,19 @@ def family_phase(tmp: str, smi: str, timer: Timer) -> tuple[dict, list, dict]:
             t1 = time.time()
             lm = load_model(path, device="cuda")
             torch.cuda.synchronize()
+            card_s = time.time() - t1
             log(f"family {family}: wrote {path} ({os.path.getsize(path) / 1e9:.2f}"
                 f" GB, Q4_K_M mix, {fam.source} widths, {FAM_LAYERS} layers: "
                 f"depth cut from {fam.widths.n_layer}) in {t1 - t0:.1f}s, "
-                f"loaded in {time.time() - t1:.1f}s")
+                f"loaded on the card in {card_s:.2f}s (numpy "
+                f"to_device_format on the host took 11.3-12.9s a 1 GB "
+                f"file on an H100 host), split "
+                f"{ {k: round(v, 3) for k, v in lm.load_split.items()} }")
+            load = dict(card_s=card_s, split=lm.load_split,
+                        **load_against_cpu(path, lm, f"family {family}"))
             zero_launches()
             res = family_model_checks(family, lm)
+            res["load"] = load
             res["launches"] = {**DM.LAUNCHES, **FA.LAUNCHES}
             log(f"family {family}: launches over its model checks "
                 f"{res['launches']}")
@@ -3832,6 +3850,170 @@ def sampling_phase(path: str, lm, smi: str, par: dict) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ load
+LOAD_SEED = 18      # the load phase's own numpy seed: no other phase's draws
+LOAD_SOURCE = ("tpu_engine_torch/csrc/extract.cu",
+               "tpu_engine/native/convert.cc:312")  # not a Pallas kernel
+LOAD_SHAPE = (4096, 4096)  # each format's timed tensor (Llama-2-7B's wq)
+LOAD_RAGGED = 333   # rows of each format's second tensor: a ragged grid edge
+# byte offsets of each block's f16 fields (d, and dmin / m where present)
+F16_AT = {"Q4_0": (0,), "Q4_1": (0, 2), "Q5_0": (0,), "Q5_1": (0, 2),
+          "Q8_0": (0,), "Q2_K": (80, 82), "Q3_K": (108,), "Q4_K": (0, 2),
+          "Q5_K": (0, 2), "Q6_K": (208,)}
+
+
+def random_blocks(rng, ty, n: int, k: int) -> np.ndarray:
+    """n rows of k elements of type ty as random block bytes: every byte
+    random, each f16 field a random finite bit pattern (negatives, zeros,
+    subnormals; an Inf/NaN exponent turned into a subnormal one)."""
+    from tpu_engine_torch.gguf.constants import GGML_BLOCK_INFO
+
+    blk, nbytes = GGML_BLOCK_INFO[ty]
+    nb = n * k // blk
+    raw = rng.integers(0, 256, size=(nb, nbytes), dtype=np.uint8)
+    for off in F16_AT[ty.name]:
+        h = rng.integers(0, 1 << 16, size=nb).astype(np.uint16)
+        h[(h & 0x7C00) == 0x7C00] &= 0x83FF
+        raw[:, off:off + 2] = h.view(np.uint8).reshape(nb, 2)
+    return raw.reshape(-1)
+
+
+def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Same dtype, shape and bytes (an f32 -0.0 differs from 0.0)."""
+    a, b = a.detach().cpu().contiguous(), b.detach().cpu().contiguous()
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(a.view(torch.uint8), b.view(torch.uint8)))
+
+
+def extract_rows(timer: Timer, smi: str) -> list[dict]:
+    """The extract kernel against extract_plain for every LAYOUTS format at
+    LOAD_SHAPE and at LOAD_RAGGED rows, equal bit for bit; at LOAD_SHAPE
+    its time (median of 20 after the L2 flush), the plain version's (host
+    numpy, median of 3) and its byte bound (raw in, qs, scale and bias
+    out)."""
+    from tpu_engine_torch.quant.device_format import LAYOUTS
+
+    rng = np.random.default_rng(LOAD_SEED)
+    rows = []
+    k = LOAD_SHAPE[1]
+    for ty in LAYOUTS:
+        for n in (LOAD_SHAPE[0], LOAD_RAGGED):
+            host = torch.from_numpy(random_blocks(rng, ty, n, k))
+            raw = host.cuda()
+            out = EX.alloc(ty, n, k, "cuda")
+            EX.extract_cuda(raw, ty, n, k, out)
+            torch.cuda.synchronize()
+            want = EX.extract_plain(host, ty, n, k)
+            if not all((a is None and b is None) or bits_equal(a, b)
+                       for a, b in zip(out, want)):
+                raise AssertionError(f"extract {ty.name} {n}x{k}: the kernel "
+                                     "differs from extract_plain")
+            nbytes = raw.numel() + sum(t.numel() * t.element_size()
+                                       for t in out if t is not None)
+            row = dict(kernel="extract", format=ty.name, shape=f"{n}x{k}",
+                       main=n == LOAD_SHAPE[0], max_abs_err=0.0,  # equal bits
+                       bytes=nbytes,
+                       bound_ms=nbytes / HBM_BYTES_S * 1e3, bound_by="bytes",
+                       library_ms=None)
+            if row["main"]:
+                row["ms"] = timer(lambda: EX.extract_cuda(raw, ty, n, k, out))
+                row["plain_ms"] = _median_s(
+                    lambda: EX.extract_plain(host, ty, n, k)) * 1e3
+                log(f"extract {ty.name} {n}x{k}: {row['ms']:.4f} ms (bound "
+                    f"{row['bound_ms']:.4f}, bytes), plain (numpy) "
+                    f"{row['plain_ms']:.1f} ms; equal bits [{smi}]")
+            else:
+                log(f"extract {ty.name} {n}x{k}: equal bits")
+            rows.append(row)
+            del raw, out
+    return rows
+
+
+def quantized_equal(a, b, where: str = "") -> int:
+    """Every quantized QTensor of weight tree a equals b's bit for bit
+    (qs, scale, bias; any devices); returns how many were compared."""
+    if isinstance(a, W.QTensor):
+        if a.kind == "dense":
+            return 0
+        if ((a.kind, a.group, a.shape) != (b.kind, b.group, b.shape)
+                or not all((x is None and y is None) or bits_equal(x, y)
+                           for x, y in ((a.qs, b.qs), (a.scale, b.scale),
+                                        (a.bias, b.bias)))):
+            raise AssertionError(f"{where}: the card's load differs from the "
+                                 "CPU's")
+        return 1
+    if isinstance(a, dict):
+        return sum(quantized_equal(v, b[k], f"{where}.{k}")
+                   for k, v in a.items())
+    if isinstance(a, list):
+        return sum(quantized_equal(v, w, f"{where}[{i}]")
+                   for i, (v, w) in enumerate(zip(a, b)))
+    return 0
+
+
+def load_against_cpu(path: str, lm, label: str) -> dict:
+    """Load path again on the CPU (extract_plain: numpy, the route before
+    the kernel) and hold lm's quantized tensors to it bit for bit."""
+    from tpu_engine_torch.model.loader import load_model
+
+    t0 = time.time()
+    ref = load_model(path, device="cpu")
+    cpu_s = time.time() - t0
+    n = quantized_equal(lm.weights, ref.weights, label)
+    log(f"{label}: {n} quantized tensors of the card's load equal the CPU "
+        f"load's bit for bit; CPU load {cpu_s:.1f}s, split "
+        f"{ {k: round(v, 3) for k, v in ref.load_split.items()} }")
+    return dict(tensors=n, cpu_s=cpu_s, cpu_split=ref.load_split)
+
+
+def load_phase(path: str, smi: str, timer: Timer) -> tuple[dict, list]:
+    """The extract kernel (extract_rows), then the smoke model loaded on the
+    card by load_model, the main path of a load, with every count zeroed
+    just before and read just after; its quantized tensors held to a CPU
+    load's. Returns (result, kernel rows)."""
+    from tpu_engine_torch.model.loader import load_model
+
+    t_phase = time.time()
+    rows = extract_rows(timer, smi)
+    torch.cuda.empty_cache()
+    zero_launches()
+    t0 = time.time()
+    lm = load_model(path, device="cuda")
+    torch.cuda.synchronize()
+    card_s = time.time() - t0
+    launches = grid_launches()
+    if not launches["extract"]:
+        raise AssertionError("load: load_model extracted nothing on the card")
+    log(f"load: {path} on the card in {card_s:.2f}s, split "
+        f"{ {k: round(v, 3) for k, v in lm.load_split.items()} }; launches "
+        f"{launches} [{smi}]")
+    out = dict(launches=launches, card_s=card_s, split=lm.load_split,
+               **load_against_cpu(path, lm, "load smoke model"))
+    del lm
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.time() - t_phase
+    log(f"load: the phase in {out['wall_s']:.1f}s [{smi}]")
+    return out, rows
+
+
+def load_line(rows: list[dict], launches: int) -> dict:
+    """The kernels line of extract: the ten formats at LOAD_SHAPE, one
+    tensor each, summed (and each under "formats")."""
+    sel = [r for r in rows if r["main"]]
+    return dict(name="extract", route="cuda", source=LOAD_SOURCE[0],
+                replaces=LOAD_SOURCE[1], launches=int(launches),
+                max_abs_err=max(r["max_abs_err"] for r in rows),
+                ms=sum(r["ms"] for r in sel),
+                plain_ms=sum(r["plain_ms"] for r in sel),
+                bound_ms=sum(r["bound_ms"] for r in sel), bound_by="bytes",
+                library_ms=None,
+                shapes=f"{LOAD_SHAPE[0]}x{LOAD_SHAPE[1]} of each LAYOUTS "
+                       "format, summed",
+                formats=[dict(format=r["format"], ms=r["ms"],
+                              plain_ms=r["plain_ms"], bound_ms=r["bound_ms"])
+                         for r in sel])
+
+
 FA_SRC = "tpu_engine/kernels/flash_attention.py"
 SOURCES = {  # kernel -> (source, the TPU kernel(s) it replaces)
     "qmm_nib4": ("tpu_engine_torch/csrc/qmm.cu",
@@ -3878,7 +4060,8 @@ def _sum_rows(sel: list[tuple[dict, int]]) -> dict:
 
 def summarize(rows: list[dict], launches: dict, tp_launches: dict,
               fam_rows: list[dict], fam_launches: dict, phi_rows: list[dict],
-              phi_launches: dict) -> list[dict]:
+              phi_launches: dict, load_rows: list[dict],
+              load_launches: int) -> list[dict]:
     """One line per kernel: the main-path shape set of a decode step for the
     projections (M=8, summed over the layer's tensors of that kernel); for
     attention the row attn_cases marks (B=8 KH=32 decode at fills 1..511
@@ -3893,7 +4076,9 @@ def summarize(rows: list[dict], launches: dict, tp_launches: dict,
     launches those of the family models' runs and served cycles, and a
     line "<kernel> phi3 tp2" for qmm_nib4 and qmm_i8 at a TP=2 phi3 rank's
     shapes (phi_rows: PHI_TP_QMM), its launches those of phi3's TP=2 model
-    check and served cycle (both ranks)."""
+    check and served cycle (both ranks). Last, the line of the load's
+    kernel, extract (load_line), its launches those of the main path's
+    loads (load_launches)."""
     out = []
     for name, (src, repl) in SOURCES.items():
         if name.startswith("qmm"):
@@ -3931,6 +4116,7 @@ def summarize(rows: list[dict], launches: dict, tp_launches: dict,
                     max_abs_err=max(r["max_abs_err"] for r in sel),
                     **_sum_rows([(r, 1) for r in sel]),
                     shapes="; ".join(r["shape"] for r in sel)))
+    out.append(load_line(load_rows, load_launches))
     return out
 
 
@@ -3997,6 +4183,8 @@ def main() -> int:
         build_q4km_gguf(path, "llama2-7b", n_layer=N_LAYER, seed=0)
         log(f"model: wrote {path} ({os.path.getsize(path) / 1e9:.2f} GB, "
             f"Q4_K_M mix) in {time.time() - t0:.1f}s")
+        detail["load"], load_rows = load_phase(path, smi, Timer(ITERS))
+        detail["load_kernel_rows"] = load_rows
         detail["model"] = model_phase(path)
         detail["server"] = server_phase(path, smi)
         detail["parallel"] = parallel_phase(path, tmp, smi, detail["server"])
@@ -4038,6 +4226,10 @@ def main() -> int:
                samp["burst"], samp["dp2"]["1x1"], samp["dp2"]["dp2"]]
     launches = {k: sum(c["launches"][k] for c in cycles) for k in SOURCES}
     tp_launches = {k: sum(c["launches"][k] for c in tp_cycles) for k in SOURCES}
+    # the load's kernel: the load phase's load_model and every cycle whose
+    # counts include it (the server's and the grids' /loadmodel cycles)
+    launches["extract"] = detail["load"]["launches"]["extract"] + sum(
+        c["launches"]["extract"] for c in cycles if "extract" in c["launches"])
     detail["launches"] = launches
     detail["tp_launches"] = tp_launches
     detail["wall_s"] = time.time() - t_start
@@ -4047,7 +4239,8 @@ def main() -> int:
         json.dump(detail, fh, indent=1)
     print(json.dumps({"kernels": summarize(rows, launches, tp_launches,
                                            fam_rows, fam_launches, phi_rows,
-                                           phi_launches)}),
+                                           phi_launches, load_rows,
+                                           launches["extract"])}),
           flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

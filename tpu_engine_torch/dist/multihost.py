@@ -127,9 +127,10 @@ _REPLAYED = ("step", "dloop", "sample_first", "trim", "seq_cp",
 
 
 def _launch_counts() -> dict[str, int]:
-    from ..kernels import dequant_matmul, flash_attention
+    from ..kernels import dequant_matmul, extract, flash_attention
 
-    return {**dequant_matmul.LAUNCHES, **flash_attention.LAUNCHES}
+    return {**dequant_matmul.LAUNCHES, **flash_attention.LAUNCHES,
+            **extract.LAUNCHES}
 
 
 class _Recorded:

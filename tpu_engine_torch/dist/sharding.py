@@ -230,7 +230,8 @@ def shard_cache(cache: KVCache, n_model: int, model_rank: int,
 
 def make_sharder(n_model: int, model_rank: int):
     """Loader hook: load_model(..., sharder=make_sharder(p, r)) cuts each
-    tensor to rank r's slice before it is uploaded (token_embd whole)."""
+    tensor, extracted whole on the rank's device, to rank r's slice
+    (token_embd whole)."""
     def sharder(name: str, t):
         role = role_of(name)
         if role == "token_embd":

@@ -145,7 +145,9 @@ def tp_mesh(n_model: int, devices=None, n_data: int = 1) -> Mesh:
 
 def TPSharder(mesh: Mesh):
     """Loader hook: load_model(path, sharder=TPSharder(mesh)) cuts every
-    tensor to this rank's slice before it is uploaded (dist/sharding.py):
+    tensor to this rank's slice (dist/sharding.py) right after the rank
+    extracts it whole on its own device; the whole tensor is freed before
+    the next one is loaded:
     q/k/v and gate/up rows, wo/w_down columns, the untied output head's
     vocab rows, q/k/v biases; token_embd and norms whole."""
     return make_sharder(mesh.n_model, mesh.model_rank)

@@ -13,6 +13,11 @@ DeviceQuant.dequantize. Scale and bias stay f32 (exact for d*sc and
 for TPU tiles only; the port has neither. "dense" tensors keep qs as a
 float [N, K] and never reach a quantized kernel.
 
+A quantized GGUF tensor reaches that layout through kernels/extract.py:
+its raw block bytes are staged in row chunks, uploaded, and extracted by
+the CUDA kernel on the card (extract_plain, the numpy to_device_format,
+on the CPU).
+
 Quantized products go through the hand-written CUDA kernels of
 kernels/dequant_matmul.py (their plain PyTorch version on CPU tensors);
 set_qmatmul_impl swaps the implementation, e.g. to hold the model against
@@ -21,18 +26,24 @@ the plain version on the card.
 
 from __future__ import annotations
 
+import contextlib
+import time
+from collections import defaultdict
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from ..gguf.reader import GGUFFile
+from ..kernels import extract as EX
 from ..quant.device_format import (
     LAYOUTS,
-    to_device_format,
     unpermute_group_transpose_i8,
     unpermute_group_transpose_nib4,
 )
+
+# raw bytes a staged chunk of a quantized tensor carries to the device
+STAGE_BYTES = 32 << 20
 
 
 @dataclass
@@ -59,25 +70,93 @@ def _to(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
+class LoadSplit:
+    """Where a load's time goes. Host phases add their wall seconds; the
+    device phases ("upload", "extract") are timed by CUDA events around
+    their work on the card (read once, by seconds(), after a synchronize),
+    and by the host clock on the CPU."""
+
+    DEVICE = ("upload", "extract")
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.cuda = self.device.type == "cuda"
+        self.host = defaultdict(float)
+        self.events = {k: [] for k in self.DEVICE}
+
+    @contextlib.contextmanager
+    def phase(self, name: str):
+        if self.cuda and name in self.DEVICE:
+            stream = torch.cuda.current_stream(self.device)
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record(stream)
+            yield
+            e1.record(stream)
+            self.events[name].append((e0, e1))
+            return
+        t0 = time.perf_counter()
+        yield
+        self.host[name] += time.perf_counter() - t0
+
+    def seconds(self) -> dict:
+        """{phase: seconds}; on the card, waits for the device first."""
+        out = dict(self.host)
+        if self.cuda:
+            torch.cuda.synchronize(self.device)
+            for k, evs in self.events.items():
+                out[k] = sum(e0.elapsed_time(e1) for e0, e1 in evs) / 1e3
+        return out
+
+
+def extract_staged(raw: np.ndarray, ty, n: int, k: int, device,
+                   split: LoadSplit) -> tuple:
+    """(qs, scale, bias) of a quantized tensor on `device` from its raw
+    block bytes (a read-only host view, e.g. the GGUF's mmap): the rows go
+    in chunks of about STAGE_BYTES, each copied once into a staging buffer
+    (pinned, from PyTorch's caching host allocator, on the card), uploaded
+    without blocking and extracted into its rows of the outputs
+    (kernels/extract.py). Rows hold whole blocks, so a chunk is a byte
+    range. A staging buffer is reused only once its upload has finished,
+    so the host copy of one chunk overlaps the upload of the one before."""
+    dev = torch.device(device)
+    qs, scale, bias = EX.alloc(ty, n, k, dev)
+    row_bytes = raw.size // n
+    rows = max(1, STAGE_BYTES // row_bytes)
+    for r0 in range(0, n, rows):
+        r1 = min(n, r0 + rows)
+        with split.phase("stage"):
+            buf = torch.empty((r1 - r0) * row_bytes, dtype=torch.uint8,
+                              pin_memory=dev.type == "cuda")
+            buf.numpy()[:] = raw[r0 * row_bytes:r1 * row_bytes]
+        with split.phase("upload"):
+            src = buf.to(dev, non_blocking=True)
+        with split.phase("extract"):
+            EX.extract(src, ty, r1 - r0, k, out=(
+                qs[r0:r1], scale[r0:r1], None if bias is None else bias[r0:r1]))
+    return qs, scale, bias
+
+
 def qtensor_from_gguf(g: GGUFFile, name: str, device,
-                      dtype=torch.float32) -> QTensor:
-    """Convert one GGUF tensor to a QTensor on `device` (numpy conversion
-    on the host, one upload per array)."""
+                      dtype=torch.float32,
+                      split: LoadSplit | None = None) -> QTensor:
+    """Convert one GGUF tensor to a QTensor on `device`: a quantized one
+    through extract_staged (the extract kernel on the card), a dense one
+    dequantized by numpy and uploaded. split: the load's LoadSplit."""
     ti = g.tensors[name]
     k = ti.shape[-1]
     n = ti.n_elems // k
+    split = split or LoadSplit(device)
     if ti.ggml_type in LAYOUTS:
         lay = LAYOUTS[ti.ggml_type]
-        dq = to_device_format(g.tensor_bytes(name), ti.ggml_type, (n, k))
-        return QTensor(
-            qs=_to(dq.qs, device),
-            scale=_to(dq.scale.astype(np.float32, copy=False), device),
-            bias=(None if dq.bias is None
-                  else _to(dq.bias.astype(np.float32, copy=False), device)),
-            kind=lay.kind, group=lay.group, shape=(n, k))
-    w = np.asarray(g.dequantize(name, np.float32)).reshape(n, k)
-    return QTensor(qs=_to(w, device).to(dtype), scale=None, bias=None,
-                   kind="dense", group=0, shape=(n, k))
+        qs, scale, bias = extract_staged(g.tensor_bytes(name), ti.ggml_type,
+                                         n, k, device, split)
+        return QTensor(qs=qs, scale=scale, bias=bias, kind=lay.kind,
+                       group=lay.group, shape=(n, k))
+    with split.phase("dense"):
+        w = np.asarray(g.dequantize(name, np.float32)).reshape(n, k)
+        return QTensor(qs=_to(w, device).to(dtype), scale=None, bias=None,
+                       kind="dense", group=0, shape=(n, k))
 
 
 def qtensor_to(qt: QTensor, device) -> QTensor:
