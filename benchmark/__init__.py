@@ -9,7 +9,8 @@ measures for the given seconds, checks the served tokens against a plain
 PyTorch reference, and prints one JSON line.
 
 Everything here reads only what the cell names: configs/<config>.json
-(with the reference model of models/ that the file names),
+(with the model module of models/ that the file names: the reference,
+and the GGUF's tensors and metadata; weights.py, gguf_file.py),
 traffic/<traffic>.json, and metrics/<metric>.py (or metrics/<prefix>.py,
 where <prefix> is the part of the name before its first dot). Nothing
 here imports jax or the JAX package, and models/ imports nothing of the

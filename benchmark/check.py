@@ -27,17 +27,31 @@ server reports, and weights the reference drew differently from the
 served ones.
 
 checks/<workload>.json holds each limit and the readings it was set from.
+
+The reference is the configuration's model module, models/<reference>.py
+(gguf_file.model_module), the one that also gives the GGUF's tensors
+and metadata (tensor_table in weights.py, gguf_metadata in gguf_file.py).
+It imports nothing of the program and defines
+
+    Reference(cfg, raw, precision="f32")
+
+over raw = {name: (shape, ggml type, flat uint8 bytes)}, every tensor of
+weights.draw_tensors drawn anew from the seed on the device (the same
+bytes the program was served, decoded by the module itself), with
+`.raw`, and `.logits(seqs, spans)`: per token sequence, float32 logits
+[hi - lo, V] at positions lo..hi-1 of its (lo, hi) span, from one full
+forward pass in float32 with TF32 off. precision "fp8" is the control:
+the same model with every matrix product's operands rounded to float8.
 """
 
 from __future__ import annotations
 
-import importlib
 import math
 
 import numpy as np
 import torch
 
-from .gguf_file import text_to_ids
+from .gguf_file import model_module, text_to_ids
 from .traffic import prompt_ids
 from .weights import draw_tensors
 
@@ -76,7 +90,7 @@ def sample(records: list, seed: int, n: int, greedy: bool = True) -> list:
 def reference(cfg: dict, seed: int, device):
     """The configuration's reference over weights drawn anew from the seed,
     and the tensors' checksums."""
-    mod = importlib.import_module(f"benchmark.models.{cfg['reference']}")
+    mod = model_module(cfg)
     raw, sums = {}, []
     for name, shape, ty, data in draw_tensors(cfg, seed, device):
         raw[name] = (shape, ty, data)

@@ -5,6 +5,20 @@ program: the file is written from the configuration (configs/*.json) and
 the weight blocks of weights.py, with the metadata keys that llama.cpp
 (and tpu_engine_torch's loader) read for the architecture.
 
+A configuration brings its architecture in its model module,
+models/<reference>.py, where configs/<name>.json names it under
+"reference" (model_module). Every such module defines
+
+    gguf_metadata(cfg) -> [(key, type, value)]
+
+the architecture's entries, general.architecture and general.name
+among them, in file order; a type is one of U32, I32, F32, BOOL, STRING,
+or (ARRAY, element type) for a list such as a per-layer array
+(models/llama_family.py gives the llama family's keys).
+model_metadata() writes those entries, then the synthetic tokenizer's,
+from vocab_size, bos_token_id, eos_token_id and gguf.add_bos (default
+true).
+
 The tokenizer is synthetic and one-to-one: token id i is the single
 character vocab_chars(n)[i], every piece is NORMAL (the unknown token aside),
 and no piece has two characters, so encoding a string of such characters
@@ -15,6 +29,7 @@ back from the text. bos and eos keep the configuration's published ids.
 
 from __future__ import annotations
 
+import importlib
 import struct
 
 GGUF_MAGIC = 0x46554747  # "GGUF"
@@ -100,31 +115,22 @@ def tokenizer_metadata(n_vocab: int, bos: int, eos: int, add_bos: bool) -> list:
     ]
 
 
+def model_module(cfg: dict):
+    """models/<reference>.py of a configuration: its plain reference and
+    its GGUF layout (tensor_table, gguf_metadata)."""
+    return importlib.import_module(f"benchmark.models.{cfg['reference']}")
+
+
+def add_bos(cfg: dict) -> bool:
+    """Whether the model's prompts start with bos (gguf.add_bos)."""
+    return bool(cfg.get("gguf", {}).get("add_bos", True))
+
+
 def model_metadata(cfg: dict) -> list:
-    """(key, type, value) entries of the architecture, from a configs/ file."""
-    a = cfg["gguf"]["architecture"]
-    E, H = cfg["hidden_size"], cfg["num_attention_heads"]
-    D = E // H
-    md = [
-        ("general.architecture", STRING, a),
-        ("general.name", STRING, f"bench-{a}-{cfg['num_hidden_layers']}l-q4_k_m"),
-        (f"{a}.block_count", U32, cfg["num_hidden_layers"]),
-        (f"{a}.context_length", U32, cfg["max_position_embeddings"]),
-        (f"{a}.embedding_length", U32, E),
-        (f"{a}.feed_forward_length", U32, cfg["intermediate_size"]),
-        (f"{a}.attention.head_count", U32, H),
-        (f"{a}.attention.head_count_kv", U32, cfg["num_key_value_heads"]),
-        (f"{a}.attention.layer_norm_rms_epsilon", F32, cfg["rms_norm_eps"]),
-        (f"{a}.rope.freq_base", F32, cfg["rope_theta"]),
-        (f"{a}.rope.dimension_count", U32, D),
-        (f"{a}.attention.key_length", U32, D),
-        (f"{a}.vocab_size", U32, cfg["vocab_size"]),
-    ]
-    if cfg.get("sliding_window") and cfg.get("use_sliding_window", True):
-        md.append((f"{a}.attention.sliding_window", U32, cfg["sliding_window"]))
-    return md + tokenizer_metadata(cfg["vocab_size"], cfg["bos_token_id"],
-                                   cfg["eos_token_id"],
-                                   cfg["gguf"].get("add_bos", True))
+    """(key, type, value) entries of a configs/ file: the model module's
+    gguf_metadata(cfg), then the synthetic tokenizer's."""
+    return model_module(cfg).gguf_metadata(cfg) + tokenizer_metadata(
+        cfg["vocab_size"], cfg["bos_token_id"], cfg["eos_token_id"], add_bos(cfg))
 
 
 def _str(b: bytearray, s: str) -> None:

@@ -21,6 +21,11 @@ blocks (ggml-quants.c's dequantize_row_q*_K), and of F32.
 `precision` "fp8" is the control: every matrix product takes x and W
 rounded to float8 e4m3 with one scale per row (amax / 448), the step below
 the bf16 operands the program's products take.
+
+tensor_table() and gguf_metadata() give the GGUF file the benchmark
+writes for such a configuration (weights.py, gguf_file.py): the tensors
+in file order with llama.cpp's Q4_K_M types (llama_tensor_get_type), and
+the metadata keys that llama.cpp reads for the architecture.
 """
 
 from __future__ import annotations
@@ -30,8 +35,83 @@ import math
 import torch
 import torch.nn.functional as F
 
+from benchmark.gguf_file import F32, STRING, U32
+
 GGML_F32, GGML_Q4_K, GGML_Q5_K, GGML_Q6_K = 0, 12, 13, 14
 _BLOCK_BYTES = {GGML_Q4_K: 144, GGML_Q5_K: 176, GGML_Q6_K: 210}
+
+
+def use_more_bits(i: int, n: int) -> bool:
+    """llama.cpp's layer rule for the Q6_K bump of attn_v / ffn_down."""
+    return i < n // 8 or i >= 7 * n // 8 or (i - n // 8) % 3 == 2
+
+
+def tensor_table(cfg: dict) -> list:
+    """[(name, shape rows first, ggml type, draw)] in file order: phi3's
+    fused q|k|v and gate|up, qwen2's q, k, v biases. 2-D weights are Q4_K;
+    output.weight is Q6_K; attn_v and ffn_down are Q6_K on the layers where
+    use_more_bits(i, n) holds; a fused attn_qkv is Q5_K; norms ("norm") and
+    biases ("bias") are F32."""
+    E, F, V = cfg["hidden_size"], cfg["intermediate_size"], cfg["vocab_size"]
+    H, KH = cfg["num_attention_heads"], cfg["num_key_value_heads"]
+    L = cfg["num_hidden_layers"]
+    D = E // H
+    q, kv = H * D, KH * D
+    g = cfg["gguf"]
+    t = [("token_embd.weight", (V, E), GGML_Q4_K, "weight"),
+         ("output_norm.weight", (E,), GGML_F32, "norm"),
+         ("output.weight", (V, E), GGML_Q6_K, "weight")]
+    for i in range(L):
+        p = f"blk.{i}."
+        more = use_more_bits(i, L)
+        t.append((p + "attn_norm.weight", (E,), GGML_F32, "norm"))
+        if g["fused_qkv"]:
+            t.append((p + "attn_qkv.weight", (q + 2 * kv, E), GGML_Q5_K, "weight"))
+        else:
+            t += [(p + "attn_q.weight", (q, E), GGML_Q4_K, "weight"),
+                  (p + "attn_k.weight", (kv, E), GGML_Q4_K, "weight"),
+                  (p + "attn_v.weight", (kv, E),
+                   GGML_Q6_K if more else GGML_Q4_K, "weight")]
+        if g["qkv_bias"]:
+            t += [(p + "attn_q.bias", (q,), GGML_F32, "bias"),
+                  (p + "attn_k.bias", (kv,), GGML_F32, "bias"),
+                  (p + "attn_v.bias", (kv,), GGML_F32, "bias")]
+        t += [(p + "attn_output.weight", (E, q), GGML_Q4_K, "weight"),
+              (p + "ffn_norm.weight", (E,), GGML_F32, "norm")]
+        if g["fused_gate_up"]:
+            t.append((p + "ffn_up.weight", (2 * F, E), GGML_Q4_K, "weight"))
+        else:
+            t += [(p + "ffn_gate.weight", (F, E), GGML_Q4_K, "weight"),
+                  (p + "ffn_up.weight", (F, E), GGML_Q4_K, "weight")]
+        t.append((p + "ffn_down.weight", (E, F),
+                  GGML_Q6_K if more else GGML_Q4_K, "weight"))
+    return t
+
+
+def gguf_metadata(cfg: dict) -> list:
+    """(key, type, value) entries of the architecture: one head_count_kv,
+    key_length = hidden_size / heads, the sliding window where it is on."""
+    a = cfg["gguf"]["architecture"]
+    E, H = cfg["hidden_size"], cfg["num_attention_heads"]
+    D = E // H
+    md = [
+        ("general.architecture", STRING, a),
+        ("general.name", STRING, f"bench-{a}-{cfg['num_hidden_layers']}l-q4_k_m"),
+        (f"{a}.block_count", U32, cfg["num_hidden_layers"]),
+        (f"{a}.context_length", U32, cfg["max_position_embeddings"]),
+        (f"{a}.embedding_length", U32, E),
+        (f"{a}.feed_forward_length", U32, cfg["intermediate_size"]),
+        (f"{a}.attention.head_count", U32, H),
+        (f"{a}.attention.head_count_kv", U32, cfg["num_key_value_heads"]),
+        (f"{a}.attention.layer_norm_rms_epsilon", F32, cfg["rms_norm_eps"]),
+        (f"{a}.rope.freq_base", F32, cfg["rope_theta"]),
+        (f"{a}.rope.dimension_count", U32, D),
+        (f"{a}.attention.key_length", U32, D),
+        (f"{a}.vocab_size", U32, cfg["vocab_size"]),
+    ]
+    if cfg.get("sliding_window") and cfg.get("use_sliding_window", True):
+        md.append((f"{a}.attention.sliding_window", U32, cfg["sliding_window"]))
+    return md
 
 
 def _f16(b: torch.Tensor) -> torch.Tensor:

@@ -9,6 +9,7 @@ with a served token altered, and the control).
 from __future__ import annotations
 
 import ast
+import hashlib
 import json
 import math
 import os
@@ -24,8 +25,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
 sys.path.insert(0, ROOT)
 
-from benchmark import check, flops, harness, stats, traffic  # noqa: E402
-from benchmark.gguf_file import (GGML_Q4_K, GGML_Q5_K, GGML_Q6_K,  # noqa: E402
+from benchmark import (check, flops, gguf_file, harness, stats,  # noqa: E402
+                       traffic, weights)
+from benchmark.gguf_file import (GGML_F32, GGML_Q4_K, GGML_Q5_K, GGML_Q6_K,  # noqa: E402
                                  ids_to_text, text_to_ids)
 from benchmark.models.llama_family import dequantize  # noqa: E402
 from benchmark.weights import random_blocks  # noqa: E402
@@ -293,15 +295,240 @@ def test_sample_takes_replies_cut_by_the_window():
     assert [r["client"] for r in check.sample(recs, 7, 4, greedy=False)] == [3]
 
 
+# -- a configuration's own architecture ----------------------------------------------
+
+# The llama family's files as the harness wrote them while their tensor
+# table and metadata were built in weights.py and gguf_file.py, before
+# models/llama_family.py gave them: computed on that code, on the CPU, as
+# the sha256 of gguf_file.header_bytes(model_metadata(cfg), tensor_table(cfg))
+# of each configs/ file at its own size, and the int64 byte sums that
+# weights.draw_tensors gives for it at small_cfg's size from seed 2**33 + 21.
+# A change to the table, the metadata or the draws moves them.
+PINNED = {
+    "phi3-mini-4k": (
+        "edac05c0dd062bc18b66090629542463fcc59616d47a27575306033832863eff",
+        [38704821, 445785, 54517644, 449909, 272534360, 77501675, 448340,
+         310069578, 155139599, 450248, 272420073, 77644015, 448449, 310177104,
+         218264284]),
+    "qwen2-7b-14l": (
+        "c7532f551bdd42396b701536bf6e4e28f6931e719ac63420abc3d95ebd2b87c9",
+        [38704821, 445785, 54517644, 449909, 77586556, 77598003, 77547782,
+         517946, 509440, 509651, 77461455, 458754, 154974915, 155102638,
+         155109095, 451611, 77469197, 77587595, 109128512, 507398, 513630,
+         513588, 77666731, 452519, 155107212, 155084536, 218266617]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PINNED))
+def test_llama_family_files_keep_their_bytes(name):
+    with open(os.path.join(HERE, "configs", name + ".json")) as f:
+        cfg = json.load(f)
+    header = gguf_file.header_bytes(gguf_file.model_metadata(cfg),
+                                    weights.tensor_table(cfg))
+    sums = [int(d.to(torch.int64).sum()) for _, _, _, d in
+            weights.draw_tensors(small_cfg(cfg), 2**33 + 21, "cpu")]
+    assert (hashlib.sha256(header).hexdigest(), sums) == PINNED[name]
+
+
+TOY = {"reference": "toy_hybrid_moe", "hidden_size": 256, "expert_width": 256,
+       "num_experts": 4, "num_experts_per_tok": 2, "num_hidden_layers": 2,
+       "vocab_size": 512, "bos_token_id": 1, "eos_token_id": 2}
+
+
+def toy_module():
+    """A model module of an architecture outside the llama family: a short
+    convolution layer and an attention layer, each with stacked experts
+    behind a router with an expert bias."""
+    import types
+
+    from benchmark.gguf_file import ARRAY, F32, I32, STRING, U32
+
+    def tensor_table(cfg):
+        E, F, X, V = (cfg["hidden_size"], cfg["expert_width"],
+                      cfg["num_experts"], cfg["vocab_size"])
+        t = [("token_embd.weight", (V, E), GGML_Q4_K, "weight"),
+             ("token_embd_norm.weight", (E,), GGML_F32, "norm")]
+        for i in range(cfg["num_hidden_layers"]):
+            p = f"blk.{i}."
+            t.append((p + "attn_norm.weight", (E,), GGML_F32, "norm"))
+            if i % 2 == 0:
+                t += [(p + "shortconv.in_proj.weight", (3 * E, E), GGML_Q4_K, "weight"),
+                      (p + "shortconv.conv.weight", (E, 3), GGML_F32, "weight")]
+            else:
+                t += [(p + "attn_q_norm.weight", (64,), GGML_F32, "norm"),
+                      (p + "attn_q.weight", (E, E), GGML_Q4_K, "weight")]
+            t += [(p + "ffn_gate_inp.weight", (X, E), GGML_F32, "weight"),
+                  (p + "exp_probs_b.bias", (X,), GGML_F32, "bias"),
+                  (p + "ffn_gate_exps.weight", (X, F, E), GGML_Q4_K, "weight"),
+                  (p + "ffn_down_exps.weight", (X, E, F), GGML_Q6_K, "weight")]
+        return t
+
+    def gguf_metadata(cfg):
+        a, L = "toy_hybrid_moe", cfg["num_hidden_layers"]
+        return [("general.architecture", STRING, a),
+                ("general.name", STRING, "toy"),
+                (f"{a}.block_count", U32, L),
+                (f"{a}.embedding_length", U32, cfg["hidden_size"]),
+                (f"{a}.attention.head_count_kv", (ARRAY, I32),
+                 [0 if i % 2 == 0 else 4 for i in range(L)]),
+                (f"{a}.expert_count", U32, cfg["num_experts"]),
+                (f"{a}.expert_used_count", U32, cfg["num_experts_per_tok"]),
+                (f"{a}.rope.freq_base", F32, 1e6)]
+
+    class Reference:
+        def __init__(self, cfg, raw, precision="f32"):
+            self.cfg, self.raw, self.precision = cfg, raw, precision
+
+    mod = types.ModuleType("benchmark.models.toy_hybrid_moe")
+    mod.tensor_table, mod.gguf_metadata = tensor_table, gguf_metadata
+    mod.Reference = Reference
+    return mod
+
+
+def test_a_foreign_architecture_round_trips(tmp_path, monkeypatch):
+    """A module of its own gives the tensors (3-D experts in Q4_K and Q6_K,
+    F32 tensors drawn as weights) and the metadata (a per-layer array,
+    expert counts); the file written reads back whole through the
+    program's reader, and the check's reference draws the same bytes."""
+    from tpu_engine_torch.gguf.reader import read_gguf
+
+    mod = toy_module()
+    monkeypatch.setitem(sys.modules, mod.__name__, mod)
+    cfg, seed = dict(TOY), 2**33 + 41
+    path = str(tmp_path / "toy.gguf")
+    sums = harness.write_gguf(cfg, seed, "cpu", path)
+    table = mod.tensor_table(cfg)
+    md = mod.gguf_metadata(cfg)
+    ref, ref_sums = check.reference(cfg, seed, "cpu")
+    assert ref_sums == sums
+    f = read_gguf(path)
+    try:
+        assert list(f.tensors) == [n for n, *_ in table]
+        for (name, shape, ty, draw), s in zip(table, sums):
+            ti = f.tensors[name]
+            assert (ti.shape, int(ti.ggml_type)) == (shape, ty)
+            data = f.tensor_bytes(name).copy()
+            assert int(data.astype(np.int64).sum()) == s
+            np.testing.assert_array_equal(data, ref.raw[name][2].numpy())
+            if ty == GGML_Q4_K and len(shape) == 3:  # one decoding, any rank
+                np.testing.assert_array_equal(
+                    f.dequantize(name), dequantize(ref.raw[name][2], ty, shape).numpy())
+            if ty == GGML_F32:  # drawn as its draw says: (scale, offset)
+                x = f.tensor_array(name).copy()
+                scale, offset = {"norm": (0.1, 1.0), "bias": (0.1, 0.0),
+                                 "weight": (0.02, 0.0)}[draw]
+                assert abs(x.mean() - offset) < 5 * scale / math.sqrt(x.size), name
+                if x.size >= 64:
+                    assert 0.7 * scale < x.std() < 1.3 * scale, name
+        for key, _, value in md:
+            got = f.metadata[key]
+            got = got.tolist() if hasattr(got, "tolist") else got
+            assert got == value, key
+        assert f.metadata["tokenizer.ggml.tokens"] == gguf_file.vocab_chars(512)
+        assert f.metadata["tokenizer.ggml.add_bos_token"] is True
+        assert list(f.metadata)[:len(md)] == [k for k, _, _ in md]
+    finally:
+        f.close()
+
+
+def test_a_new_cell_reports_every_end_to_end_metric(tmp_path, monkeypatch):
+    """BENCHMARK.json with one configuration and one cell appended and
+    nothing else changed: the new cell reports output_tokens_per_s and
+    setup_s, and what each of its per-layer metrics moves is among them."""
+    import shutil
+
+    m = manifest()
+    m["configs"].append({"name": "qwen2-7b-14l",
+                         "source": "https://huggingface.co/Qwen/Qwen2-7B-Instruct",
+                         "file": "benchmark/configs/qwen2-7b-14l.json",
+                         "reduced": ["num_hidden_layers"], "why": "GQA, qkv bias"})
+    m["workloads"].append({"name": "qwen2-7b-14l.chat", "config": "qwen2-7b-14l",
+                           "traffic": "chat", "chips": 1, "why": "chat on qwen2"})
+    path = tmp_path / "BENCHMARK.json"
+    path.write_text(json.dumps(m))
+    # the cell's files: the chat traffic, and a check file of its own
+    here = tmp_path / "benchmark"
+    shutil.copytree(os.path.join(HERE, "traffic"), here / "traffic")
+    (here / "checks").mkdir()
+    shutil.copy(os.path.join(HERE, "checks", "phi3-mini-4k.chat.json"),
+                here / "checks" / "qwen2-7b-14l.chat.json")
+    monkeypatch.setattr(harness, "HERE", str(here))
+    spec = harness.cell_spec("qwen2-7b-14l.chat", manifest_path=str(path))
+    e2e = {x["name"] for x in spec["end_to_end"]}
+    assert e2e == {"output_tokens_per_s", "setup_s"}
+    assert spec["per_layer"] and all(x["moves"] in e2e for x in spec["per_layer"])
+    assert spec["cfg"]["num_hidden_layers"] == 14
+
+
+# -- the reduced trace -----------------------------------------------------------------
+
+class _Event:
+    """A profiler event as trace.reduce reads it."""
+
+    def __init__(self, name, start, dur, corr, on_device):
+        self._v = (name, start, dur, corr, on_device)
+
+    def name(self):
+        return self._v[0]
+
+    def start_ns(self):
+        return self._v[1]
+
+    def duration_ns(self):
+        return self._v[2]
+
+    def activity_type(self):
+        return "kernel" if self._v[4] else "cuda_runtime"
+
+    def correlation_id(self):
+        return self._v[3]
+
+    def linked_correlation_id(self):
+        return 0
+
+    def device_type(self):
+        return "DeviceType.CUDA" if self._v[4] else "DeviceType.CPU"
+
+
+def test_reduce_keeps_every_kernels_time():
+    """12 kernel names, each launched twice, one launch of each cut by the
+    window's end: every name's time in kernel_s, the ten longest in
+    device_ops, with the same seconds."""
+    from benchmark import trace
+
+    t0, t1, ms = 10**12, 10**12 + 10**9, 10**6
+    evs = []
+    for k in range(12):
+        raw = f"void ns::(anonymous namespace)::kern{k:02d}<float, 4>(float*, int)"
+        evs.append(_Event(raw, t0 + 2 * k * 10 * ms, (k + 1) * ms, 2 * k, True))
+        # the second launch runs 1 ms into the window's end
+        evs.append(_Event(raw, t1 - ms, 5 * ms, 2 * k + 1, True))
+        evs.append(_Event("cudaLaunchKernel", t0 + k * ms, 1000, 2 * k, False))
+    out = trace.reduce(evs, t0, t1, trace.Tracer(2, 512), None)
+    want = {f"ns::kern{k:02d}": ((k + 1) + 1) / 1e3 for k in range(12)}
+    assert out["kernel_s"] == pytest.approx(want)
+    top = sorted(want, key=lambda n: -want[n])[:10]
+    assert [n for n, _ in out["device_ops"]] == top
+    assert sum(v for _, v in out["device_ops"]) == pytest.approx(
+        sum(out["kernel_s"][n] for n in top))
+    assert sum(out["kernel_s"].values()) == pytest.approx(sum(want.values()))
+
+
 # -- whole runs of a small cell on the CPU ----------------------------------------------
 
+def small_cfg(cfg: dict) -> dict:
+    """A configuration at a size a CPU test holds: hidden 1024, 2 layers,
+    vocab 512."""
+    return dict(cfg, hidden_size=1024, intermediate_size=2048,
+                num_hidden_layers=2, num_attention_heads=8, num_key_value_heads=8,
+                vocab_size=512, eos_token_id=2)
+
+
 def small_spec(cell: str = "phi3-mini-4k.batch") -> dict:
-    """The cell at a size a CPU test holds: hidden 1024, 2 layers, vocab
-    512, 2 slots, short prompts and replies."""
+    """The cell at a size a CPU test holds: small_cfg, 2 slots, short
+    prompts and replies."""
     spec = harness.cell_spec(cell)
-    cfg = dict(spec["cfg"], hidden_size=1024, intermediate_size=2048,
-               num_hidden_layers=2, num_attention_heads=8, num_key_value_heads=8,
-               vocab_size=512, eos_token_id=2)
+    cfg = small_cfg(spec["cfg"])
     t = dict(spec["traffic"], prompt_tokens={"dist": "loguniform", "lo": 16, "hi": 48},
              max_tokens={"dist": "uniform", "lo": 8, "hi": 20},
              load=dict(spec["traffic"]["load"], n_parallel=2, ctx_len=512))

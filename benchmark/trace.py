@@ -24,10 +24,10 @@ everything through. A program whose names moved leaves the wrapper out
 and the metrics that need it silent.
 
 reduce() reads the profiler's raw events: device activity gives the busy
-time, its complement the idle gaps (each named by the innermost host span
-in flight at its middle), and each kernel's launch (its runtime call, by
-correlation id) falls in one call's span, which gives that call's device
-time.
+time and every kernel's time by name, its complement the idle gaps (each
+named by the innermost host span in flight at its middle), and each
+kernel's launch (its runtime call, by correlation id) falls in one call's
+span, which gives that call's device time.
 """
 
 from __future__ import annotations
@@ -235,7 +235,11 @@ def _union(intervals, lo: int, hi: int) -> list:
 
 
 def reduce(events, t0_ns: int, t1_ns: int, tracer: Tracer, peak: dict | None) -> dict:
-    """Summary of one traced window [t0_ns, t1_ns] (host clock, ns)."""
+    """Summary of one traced window [t0_ns, t1_ns] (host clock, ns):
+    busy_s and window_s; kernel_s, the device seconds inside the window of
+    every kernel name (kernel_name()), and device_ops, its ten longest;
+    idle_gaps, the ten longest sums of gaps by the host span they fell in;
+    with a peak, each traced call kind's least and device seconds."""
     lo = t0_ns - 1_000_000_000  # a launch runs at most this far ahead
     evs = [_ev(e) for e in events if e.start_ns() + e.duration_ns() >= lo
            and e.start_ns() <= t1_ns]
@@ -289,6 +293,7 @@ def reduce(events, t0_ns: int, t1_ns: int, tracer: Tracer, peak: dict | None) ->
         call_dev[idx] = call_dev.get(idx, 0.0) + (e[3] - e[2]) / 1e9
 
     out = {"busy_s": busy_ns / 1e9, "window_s": (t1_ns - t0_ns) / 1e9,
+           "kernel_s": ops_time,
            "device_ops": sorted(ops_time.items(), key=lambda kv: -kv[1])[:10],
            "idle_gaps": sorted(gaps.items(), key=lambda kv: -kv[1])[:10],
            "n_device_events": len(device), "n_calls_timed": len(call_dev)}

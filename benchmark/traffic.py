@@ -36,7 +36,7 @@ import math
 
 import numpy as np
 
-from .gguf_file import ids_to_text
+from .gguf_file import add_bos, ids_to_text
 
 BLOCK = 16
 GREEDY = {"temperature": 0.0, "repeat_penalty": 1.0}
@@ -84,7 +84,7 @@ def load_body(cfg: dict, traffic: dict) -> dict:
 def prompt_ids(cfg: dict, messages: list) -> list:
     """The ids the server's template makes of `messages` [(role, ids)]."""
     m = markers(cfg)
-    ids = [cfg["bos_token_id"]] if cfg["gguf"].get("add_bos", True) else []
+    ids = [cfg["bos_token_id"]] if add_bos(cfg) else []
     for role, toks in messages:
         if role == "system":
             ids.append(m["system"])
@@ -147,7 +147,7 @@ def build(cfg: dict, traffic: dict, seed: int, n_requests: int = 4096) -> dict:
     for k in range(n_requests):
         greedy, fields = _sampling(traffic, k)
         # the template adds bos (if the model adds it) and the ai marker
-        n_user = lens[k] - 1 - int(cfg["gguf"].get("add_bos", True))
+        n_user = lens[k] - 1 - int(add_bos(cfg))
         reqs.append({"messages": [("user", tokens(n_user))],
                      "max_tokens": outs[k], "fields": fields, "greedy": greedy})
     if traffic["loop"] == "open":

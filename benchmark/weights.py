@@ -1,17 +1,26 @@
 """Random Q4_K_M weights of a configuration, drawn on the device from a seed.
 
-tensor_table() lists a configuration's GGUF tensors in file order with
-llama.cpp's Q4_K_M types (llama_tensor_get_type): 2-D weights are Q4_K;
-output.weight is Q6_K; attn_v and ffn_down are Q6_K on the layers where
-use_more_bits(i, n) holds; a fused attn_qkv is Q5_K; norms and biases are
-F32.
+tensor_table() lists a configuration's GGUF tensors in file order, as its
+model module (models/<reference>.py, gguf_file.model_module) gives them.
+Every such module defines
+
+    tensor_table(cfg) -> [(name, shape rows first, ggml type, draw)]
+
+in file order, with a shape of any rank (3-D [experts, rows, cols] for
+stacked experts) and a type of gguf_file.BLOCK (F32, Q4_K, Q5_K, Q6_K);
+`draw` says how an F32 tensor is drawn: "norm" is 1 + 0.1 N(0, 1),
+"bias" 0.1 N(0, 1), "weight" SPREAD * N(0, 1) (a router, a convolution's
+kernel); a k-quant tensor's blocks are drawn as below, whatever it says.
+models/llama_family.py gives the llama family's, with llama.cpp's Q4_K_M
+types.
 
 draw_tensors() draws every tensor's raw bytes from one torch.Generator on
 the given device, a few calls per tensor, in file order, so the same seed
 on the same device gives the same bytes. Each k-quant block is drawn
 directly, as tools/family_gguf.random_blocks draws it (frozen copy, in
 torch): quants uniform, sub-block scales and mins set so that the weights
-of a group average about 0 with a spread about SPREAD.
+of a group average about 0 with a spread about SPREAD. A k-quant tensor of
+any rank is drawn as its blocks in row-major order.
 """
 
 from __future__ import annotations
@@ -20,53 +29,30 @@ import math
 
 import torch
 
-from .gguf_file import (GGML_F32, GGML_Q4_K, GGML_Q5_K, GGML_Q6_K,
+from .gguf_file import (BLOCK, GGML_F32, GGML_Q4_K, GGML_Q6_K, model_module,
                         tensor_nbytes)
 
 SPREAD = 0.02  # about the std of a drawn weight
+# how an F32 tensor is drawn: (scale of N(0, 1), offset)
+DRAWS = {"norm": (0.1, 1.0), "bias": (0.1, 0.0), "weight": (SPREAD, 0.0)}
 
 
-def use_more_bits(i: int, n: int) -> bool:
-    """llama.cpp's layer rule for the Q6_K bump of attn_v / ffn_down."""
-    return i < n // 8 or i >= 7 * n // 8 or (i - n // 8) % 3 == 2
+def drawn_table(cfg: dict) -> list:
+    """[(name, shape (rows first), ggml type, draw)] in file order: the
+    model module's tensor_table(cfg), its types and draws checked."""
+    out = [(n, tuple(shape), ty, draw) for n, shape, ty, draw
+           in model_module(cfg).tensor_table(cfg)]
+    for n, _, ty, draw in out:
+        if ty not in BLOCK:
+            raise ValueError(f"{n}: no drawn type {ty} (one of {sorted(BLOCK)})")
+        if ty == GGML_F32 and draw not in DRAWS:
+            raise ValueError(f"{n}: no draw {draw!r} (one of {sorted(DRAWS)})")
+    return out
 
 
 def tensor_table(cfg: dict) -> list:
     """[(name, shape (rows first), ggml type)] in file order."""
-    E, F, V = cfg["hidden_size"], cfg["intermediate_size"], cfg["vocab_size"]
-    H, KH = cfg["num_attention_heads"], cfg["num_key_value_heads"]
-    L = cfg["num_hidden_layers"]
-    D = E // H
-    q, kv = H * D, KH * D
-    g = cfg["gguf"]
-    t = [("token_embd.weight", (V, E), GGML_Q4_K),
-         ("output_norm.weight", (E,), GGML_F32),
-         ("output.weight", (V, E), GGML_Q6_K)]
-    for i in range(L):
-        p = f"blk.{i}."
-        more = use_more_bits(i, L)
-        t.append((p + "attn_norm.weight", (E,), GGML_F32))
-        if g["fused_qkv"]:
-            t.append((p + "attn_qkv.weight", (q + 2 * kv, E), GGML_Q5_K))
-        else:
-            t += [(p + "attn_q.weight", (q, E), GGML_Q4_K),
-                  (p + "attn_k.weight", (kv, E), GGML_Q4_K),
-                  (p + "attn_v.weight", (kv, E),
-                   GGML_Q6_K if more else GGML_Q4_K)]
-        if g["qkv_bias"]:
-            t += [(p + "attn_q.bias", (q,), GGML_F32),
-                  (p + "attn_k.bias", (kv,), GGML_F32),
-                  (p + "attn_v.bias", (kv,), GGML_F32)]
-        t += [(p + "attn_output.weight", (E, q), GGML_Q4_K),
-              (p + "ffn_norm.weight", (E,), GGML_F32)]
-        if g["fused_gate_up"]:
-            t.append((p + "ffn_up.weight", (2 * F, E), GGML_Q4_K))
-        else:
-            t += [(p + "ffn_gate.weight", (F, E), GGML_Q4_K),
-                  (p + "ffn_up.weight", (F, E), GGML_Q4_K)]
-        t.append((p + "ffn_down.weight", (E, F),
-                  GGML_Q6_K if more else GGML_Q4_K))
-    return t
+    return [t[:3] for t in drawn_table(cfg)]
 
 
 def _f16_bytes(x: float, n: int, device) -> torch.Tensor:
@@ -114,16 +100,17 @@ def random_blocks(g: torch.Generator, n: int, ty: int, device) -> torch.Tensor:
 
 def draw_tensors(cfg: dict, seed: int, device):
     """Yield (name, shape, type, bytes as a flat uint8 tensor on `device`)
-    for every tensor of tensor_table(cfg), in order. Norm weights are
-    1 + 0.1 N(0, 1), biases 0.1 N(0, 1), in f32."""
+    for every tensor of tensor_table(cfg), in order; an F32 tensor drawn
+    as its draw says (DRAWS)."""
     g = torch.Generator(device=device)
     g.manual_seed(int(seed) % (1 << 63))
-    for name, shape, ty in tensor_table(cfg):
+    for name, shape, ty, draw in drawn_table(cfg):
         if ty == GGML_F32:
-            x = 0.1 * torch.randn(shape, generator=g, device=device,
-                                  dtype=torch.float32)
-            if not name.endswith(".bias"):
-                x = x + 1.0
+            scale, offset = DRAWS[draw]
+            x = scale * torch.randn(shape, generator=g, device=device,
+                                    dtype=torch.float32)
+            if offset:
+                x = x + offset
             data = x.view(torch.uint8).reshape(-1)
         else:
             data = random_blocks(g, math.prod(shape), ty, device).reshape(-1)
